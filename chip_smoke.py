@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (flingbot_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line with its wall seconds:
+  0  card name and power limit (nvidia-smi), torch and CUDA versions
+  1  build both CUDA kernels from csrc/ with nvcc (parallel)
+  2  each kernel against its plain PyTorch version on the card, at the
+     shapes of the main path (128 envs, 104x104 lattice, dims 64-104):
+     max abs error against the stated tolerance, CUDA-event times
+  3  physics frame at bench.py's operating point: 512 envs of 100x100,
+     4 substeps x 16 Chebyshev iterations, contacts 4/12/every 2 -> rate
+  4  the main path: BatchSimEnv of 128 crumpled cloths (64-104) at
+     production knobs (render 400, obs 64, 96 views, 16x8 value net,
+     seeded init): reset -> batch_value_maps -> step, launch counters
+     zeroed before and read after; plus one frame of 4 envs on the card
+     against the plain path on the CPU
+  5  torch.profiler over 16 interpreter steps of the main path: time per
+     step, device time by kernel, the device's busy share
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
+Exits non-zero without a result when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# f32 peak outside the tensor cores and HBM rate of one H100 SXM at 700 W
+# (NVIDIA data sheet)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# tolerances of kernel vs plain version on the same inputs (see PERF.md).
+# Built without FMA contraction (engine/build.py, -fmad=false) and summing
+# in the same order, the two have measured bit-identical; the bounds leave
+# room for a last-place difference that 32 Chebyshev iterations amplify
+# (P, prev), for V = (P - prev) / dt_sub multiplying it by 400, and for 4
+# contact iterations (contacts).  They hold only for that build: with FMA
+# contraction a rounding change flips the discontinuous velocity clamp and
+# contact counts (measured 0.28 m/s in V, 7e-5 m in contacts), so such a
+# build must be held instead by phase 4's one frame of the card against
+# the CPU path, at 1e-4 m
+TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
+       "contacts.xyz": 2e-6}
+SMOKE_ENVS = 128
+BENCH_ENVS, BENCH_DIM, BENCH_STEPS = 512, 100, 10
+SOLVER = dict(substeps=4, iterations=16, contact_every=2,
+              contact_iterations=4, contact_window=12)
+SCALES = (1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"[phase {self.name}] start")
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"[phase {self.name}] done in "
+                f"{time.perf_counter() - self.t0:.2f} s")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------------------
+# work models for the bounds: operations and bytes this data needs
+# --------------------------------------------------------------------------
+
+def substeps_work(dims, H, W, n_sub, iterations):
+    """(bytes, f32 ops) of one substeps launch.  Per constraint per
+    iteration: difference 3, squared length 6, rsqrt 1, relaxation 2,
+    two scalings 2, two endpoint updates 12 (FMA = 2 ops) = 26; per
+    particle per iteration: count scaling 6, Chebyshev 9, plane 15 = 30;
+    per particle per substep: integrate 12, velocity clamp 25, two picker
+    spheres 30 = 67.  Bytes: P, V, w, params read once; P, V, prev
+    written once."""
+    B = len(dims)
+    ops = 0
+    for dx, dy in dims:
+        n = dx * dy
+        cons = ((dx - 1) * dy + dx * (dy - 1) + (dx - 2) * dy + dx * (dy - 2)
+                + 2 * (dx - 1) * (dy - 1))
+        ops += n_sub * (iterations * (26 * cons + 30 * n) + 67 * n)
+    nbytes = 4 * B * (3 * H * W * 2 + H * W + 21) + 4 * B * 3 * H * W * 3
+    return nbytes, ops
+
+
+def contacts_work(n_active, N, window, iterations):
+    """(bytes, f32 ops) of one contacts launch.  Per pair inside the
+    window per iteration ~66 ops (distance 10, penetration 3, friction
+    tangent 26, scale 6, two endpoint updates 12, count 2, masks 7); per
+    particle per iteration 22 (Jacobi average 7, plane 15).  Bytes: six
+    coordinate arrays + packed ids + params read once, three written."""
+    B = len(n_active)
+    ops = 0
+    for n in n_active:
+        pairs = sum(max(0, n - k) for k in range(1, window + 1))
+        ops += iterations * (66 * pairs + 22 * n)
+    nbytes = 4 * B * N * 7 + 4 * B * 8 + 4 * B * N * 3
+    return nbytes, ops
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def phase_card():
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    log(out[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    return out[0]
+
+
+def phase_build():
+    from flingbot_tpu_torch.engine import build, kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"built {list(kernels.KERNELS)} in {time.perf_counter() - t0:.2f} s "
+        f"into {build.build_dir()}")
+    for name, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+
+
+def synthetic_inputs(B, H, W, gen, device):
+    """Wrinkled, compressed cloths (so contacts fire) of seeded dims in
+    64..H, an active picker touching each, seeded velocities."""
+    import torch
+
+    from flingbot_tpu_torch.engine.solver import pack_sub_params
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.engine.topology import (
+        build_grid_topology, lattice_valid)
+
+    dims = torch.randint(64, H + 1, (B, 2), generator=gen)
+    topo = build_grid_topology(dims[:, 0].numpy(), dims[:, 1].numpy(),
+                               max_dimx=W, max_dimy=H, device=device)
+    iy = torch.arange(H).view(1, H, 1).float()
+    ix = torch.arange(W).view(1, 1, W).float()
+    sp = 0.00625 * 0.8
+    P = torch.stack([
+        (ix - dims[:, 0].view(-1, 1, 1) / 2) * sp + 0 * iy,
+        0.05 + 0.01 * torch.sin(ix * 0.7 + iy * 0.3)
+        + 0.005 * torch.rand(B, H, W, generator=gen),
+        (iy - dims[:, 1].view(-1, 1, 1) / 2) * sp + 0 * ix], 1)
+    V = 0.05 * torch.randn(B, 3, H, W, generator=gen)
+    valid = lattice_valid(topo.dimx.cpu(), topo.dimy.cpu(), H, W)
+    n = (dims[:, 0] * dims[:, 1]).float().view(-1, 1, 1)
+    w = torch.where(valid, n / 0.5, 0.0)
+    w[:, 0, 0] = 0.0  # a grasped particle
+    picker = torch.stack([P[:, :, 0, 0] + torch.tensor([0.0, 0.02, 0.0]),
+                          torch.full((B, 3), -10.0)], 1)
+    pvec = pack_sub_params(SolverParams(), topo, picker.to(device), 0.02,
+                           0.0025)
+    to = lambda x: x.to(device).contiguous()  # noqa: E731
+    return topo, pvec, to(P), to(V), to(w), valid.to(device)
+
+
+def phase_kernels(device):
+    import torch
+
+    from flingbot_tpu_torch.engine import collisions, kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    gen = torch.Generator().manual_seed(1)
+    B, H, W = SMOKE_ENVS, 104, 104
+    topo, pvec, P, V, w, valid = synthetic_inputs(B, H, W, gen, device)
+    kw = dict(n_sub=2, iterations=16, picker_last=False)
+    out_k = kernels.substeps(pvec, P, V, w, **kw)
+    out_p = kernels.substeps_plain(pvec, P, V, w, **kw)
+    torch.cuda.synchronize()
+    err = {}
+    for name, a, b in zip(("P", "V", "prev"), out_k, out_p):
+        err[f"substeps.{name}"] = float((a - b).abs().max())
+        assert torch.isfinite(a).all(), name
+    ms_k = cuda_ms(lambda: kernels.substeps(pvec, P, V, w, **kw), 10)
+    ms_p = cuda_ms(lambda: kernels.substeps_plain(pvec, P, V, w, **kw), 3)
+    dims = list(zip(topo.dimx.tolist(), topo.dimy.tolist()))
+    b_ms, b_by = bound(*substeps_work(dims, H, W, 2, 16))
+    rows = {"substeps": dict(
+        max_abs_err=max(err[f"substeps.{k}"] for k in ("P", "V", "prev")),
+        max_abs_err_by_output={k: err[f"substeps.{k}"]
+                               for k in ("P", "V", "prev")},
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)}
+
+    # contacts on the Morton-sorted state the substeps left behind
+    params = SolverParams()
+    Pn, _, prev = out_k
+    order, srt = collisions.sort_particles(
+        Pn.reshape(B, 3, -1), prev.reshape(B, 3, -1), w.reshape(B, -1),
+        valid.reshape(B, -1), rest_dist=params.radius, lattice_w=W)
+    cp = collisions.contact_params(params, params.radius, B, device)
+    ckw = dict(window=12, iterations=4)
+    ok_ = kernels.contacts(cp, *srt, **ckw)
+    op_ = kernels.contacts_plain(cp, *srt, **ckw)
+    torch.cuda.synchronize()
+    err["contacts.xyz"] = max(float((a - b).abs().max())
+                              for a, b in zip(ok_, op_))
+    moved = max(float((a - s).abs().max()) for a, s in zip(ok_, srt))
+    ms_k = cuda_ms(lambda: kernels.contacts(cp, *srt, **ckw), 10)
+    ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt, **ckw), 3)
+    n_active = [dx * dy for dx, dy in dims]
+    b_ms, b_by = bound(*contacts_work(n_active, H * W, 12, 4))
+    rows["contacts"] = dict(max_abs_err=err["contacts.xyz"], ms=ms_k,
+                            plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    for k, v in err.items():
+        log(f"  {k}: max abs err {v:.3e} (tolerance {TOL[k]:.0e})")
+    log(f"  contacts moved particles by up to {moved:.3e} m")
+    for name, r in rows.items():
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at B={B}")
+    bad = {k: v for k, v in err.items() if not v <= TOL[k]}
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+    if not moved > 0:
+        raise AssertionError("contacts fired on no pair")
+    return rows
+
+
+def phase_bench(device):
+    import numpy as np
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.engine.topology import build_grid_topology
+    from flingbot_tpu_torch.engine.topology import grid_positions
+    from flingbot_tpu_torch.env.scene import Task, make_batch
+
+    d = BENCH_DIM
+    pos = grid_positions(d, d, lower=(0.0, 0.005, 0.0))
+    pos[:, [0, 2]] -= pos[:, [0, 2]].mean(0)
+    n = d * d
+    pp = np.concatenate([pos, np.full((n, 1), n / 0.5, np.float32)], 1)
+    task = Task(cloth_size=(d, d), particle_pos=pp.reshape(-1))
+    _, state = make_batch([task] * BENCH_ENVS, max_grid_dim=d, device=device)
+    topo = build_grid_topology([d] * BENCH_ENVS, [d] * BENCH_ENVS,
+                               max_dimx=d, max_dimy=d, device=device)
+    params = SolverParams()
+    kernels.reset_launch_counts()
+    holder = [step(state, topo, params, **SOLVER)]
+    torch.cuda.synchronize()
+
+    def run():
+        holder[0] = step(holder[0], topo, params, **SOLVER)
+
+    ms = cuda_ms(run, BENCH_STEPS, warmup=0)
+    assert torch.isfinite(holder[0].positions).all()
+    rate = BENCH_ENVS / (ms / 1e3)
+    log(f"  {BENCH_ENVS} envs x {d}x{d}: {ms:.3f} ms per frame -> "
+        f"{rate:.1f} env-steps/s; launches {dict(kernels.LAUNCHES)} over "
+        f"{BENCH_STEPS + 1} frames")
+    return rate
+
+
+def phase_slice(device):
+    import numpy as np
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.coverage import get_current_covered_area
+    from flingbot_tpu_torch.env.scene import crumple, flat_tasks, make_batch
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+
+    rng = np.random.default_rng(0)
+    sizes = [tuple(int(v) for v in rng.integers(64, 105, 2))
+             for _ in range(SMOKE_ENVS)]
+    params = SolverParams()
+    t0 = time.perf_counter()
+    topo, state = make_batch(flat_tasks(sizes), device=device)
+    state = crumple(state, topo, params, torch.Generator().manual_seed(0),
+                    SOLVER)
+    torch.cuda.synchronize()
+    log(f"  crumpled {SMOKE_ENVS} cloths in {time.perf_counter() - t0:.2f} s")
+
+    # the path on the card against the plain path on the CPU, one frame
+    sub = torch.arange(min(4, SMOKE_ENVS), device=device)
+    st4, tp4 = state.index(sub), topo.index(sub)
+    gpu = step(st4, tp4, params, **SOLVER)
+    cpu = step(st4.to("cpu"), tp4.to("cpu"), params, **SOLVER)
+    frame_err = float((gpu.positions.cpu() - cpu.positions).abs().max())
+    cov_g = get_current_covered_area(gpu.positions, gpu.active).cpu()
+    cov_c = get_current_covered_area(cpu.positions, cpu.active)
+    log(f"  one frame, 4 envs, card vs CPU plain path: max |dP| "
+        f"{frame_err:.3e} m; coverage {cov_g.tolist()} vs {cov_c.tolist()}")
+    if not frame_err < 1e-4:
+        raise AssertionError(f"card frame disagrees with the CPU: {frame_err}")
+
+    env = BatchSimEnv(device=device, scale_factors=SCALES, **SOLVER)
+    policy = MaximumValuePolicy(["fling"], 64, seed=0, device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return t[-1] - t[-2]
+
+    obs = env.reset(state, topo)
+    s_reset = lap()
+    vm = policy.batch_value_maps(obs)
+    s_policy = lap()
+    obs = env.step(vm)
+    s_step = lap()
+    launches = dict(kernels.LAUNCHES)
+
+    last = env.last
+    T = 12 * len(SCALES)
+    assert tuple(obs.shape) == (SMOKE_ENVS, T, 4, 64, 64), obs.shape
+    assert tuple(vm.shape) == (SMOKE_ENVS, 1, T, 64, 64), vm.shape
+    for name, x in (("obs", obs), ("value maps", vm),
+                    ("positions", env.state.positions),
+                    ("pre coverage", last.pre_coverage),
+                    ("post coverage", last.post_coverage)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"non-finite {name}")
+    pre, post = last.pre_coverage.cpu(), last.post_coverage.cpu()
+    steps = last.sim_steps.cpu().float()
+    log(f"  reset {s_reset:.2f} s, value maps {s_policy:.2f} s, step "
+        f"{s_step:.2f} s ({last.chunks} chunks of {env.chunk_steps})")
+    log(f"  sim steps per env: mean {steps.mean():.1f} max {steps.max():.0f}")
+    log(f"  coverage m^2: pre mean {pre.mean():.5f} min {pre.min():.5f} "
+        f"max {pre.max():.5f}; post mean {post.mean():.5f} min "
+        f"{post.min():.5f} max {post.max():.5f}; grasped "
+        f"{int((last.selection.p1_grasp | last.selection.p2_grasp).sum())}"
+        f"/{SMOKE_ENVS}; terminated {int(last.terminate.sum())}")
+    log(f"  launches on the main path: {launches}")
+    if not (pre > 0).all():
+        raise AssertionError("zero pre-action coverage")
+    for name in kernels.KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched on the path")
+    return launches, (env, vm)
+
+
+def phase_profile(env, vm, steps: int = 16):
+    """torch.profiler over `steps` interpreter steps of a fresh fling
+    program on the main path's envs: wall time per step, device time by
+    kernel and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flingbot_tpu_torch.env.primitives import (
+        STABLE_MAX_STEPS, program_chunk)
+    from flingbot_tpu_torch.env.sim_env import step_begin
+
+    _, _, _, carry, prog = step_begin(env.state, vm, env.obs, env.rotations,
+                                      env.prim_cfg, env.pix_grasp_dist)
+    kw = dict(max_steps=env.prim_cfg.max_program_steps + STABLE_MAX_STEPS,
+              sim_kw=env.sim_kw)
+    carry, _ = program_chunk(carry, env.topo, env.params, prog,
+                             chunk_steps=2, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        program_chunk(carry, env.topo, env.params, prog,
+                      chunk_steps=steps, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: an aten op's own entry repeats the time of
+    # the kernels it launched
+    dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                            getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    total = sum(dev(e) for e in events) / 1e3  # ms
+    ours = sum(dev(e) for e in events
+               if "substeps_kernel" in e.key or "contacts_kernel" in e.key)
+    log(f"  {steps} interpreter steps at B={env.state.batch}: wall "
+        f"{wall * 1e3 / steps:.3f} ms per step, device "
+        f"{total / steps:.3f} ms per step (the two kernels "
+        f"{ours / 1e3 / steps:.3f}), device busy share "
+        f"{total / (wall * 1e3):.3f}, {len(events)} device kernel kinds")
+    for e in sorted(events, key=dev, reverse=True)[:8]:
+        log(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
+            f" launches/step  {e.key[:70]}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import flingbot_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    device = torch.device("cuda")
+    with Phase("0 card"):
+        phase_card()
+    with Phase("1 build"):
+        phase_build()
+    with Phase("2 kernels vs plain"):
+        rows = phase_kernels(device)
+    with Phase("3 physics frame"):
+        phase_bench(device)
+    with Phase("4 main path"):
+        launches, (env, vm) = phase_slice(device)
+    with Phase("5 profile"):
+        phase_profile(env, vm)
+
+    sources = {"substeps": ("flingbot_tpu_torch/csrc/substeps.cu",
+                            "flingbot_tpu/engine/pallas_kernels.py:314"),
+               "contacts": ("flingbot_tpu_torch/csrc/contacts.cu",
+                            "flingbot_tpu/engine/pallas_kernels.py:563")}
+    table = []
+    for name in ("substeps", "contacts"):
+        r = rows[name]
+        table.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+        if "max_abs_err_by_output" in r:
+            table[-1]["max_abs_err_by_output"] = r["max_abs_err_by_output"]
+        assert all(isinstance(v, (int, float)) and math.isfinite(v)
+                   for k, v in table[-1].items()
+                   if k in ("ms", "plain_ms", "bound_ms", "max_abs_err"))
+    log(json.dumps({"kernels": table}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""learning layer of the PyTorch port (see flingbot_tpu_torch/__init__.py)."""

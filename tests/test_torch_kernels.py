@@ -1,0 +1,166 @@
+"""The port's two kernel modules held against the Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+the Pallas kernels in interpret mode, as tests/test_pallas.py does.  The
+CUDA kernels themselves are compared with the plain versions on the card
+(`cuda`-marked test here, and chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flingbot_tpu.engine import solver as jsolver
+from flingbot_tpu.engine.collisions import (
+    _contacts_sorted_flat, contact_group as jax_contact_group)
+from flingbot_tpu.engine.pallas_kernels import (
+    pack_sub_params as jax_pack, pallas_contacts, pallas_substeps)
+from flingbot_tpu.engine.state import SolverParams as JParams
+from flingbot_tpu.engine.topology import build_grid_topology as jax_topology
+from flingbot_tpu.engine.topology import grid_positions
+from flingbot_tpu_torch.engine import collisions, kernels
+from flingbot_tpu_torch.engine.solver import pack_sub_params
+from flingbot_tpu_torch.engine.state import SolverParams
+from flingbot_tpu_torch.engine.topology import build_grid_topology
+import tests.test_torch_common  # noqa: F401  (CPU platform, 2 threads)
+
+DIM = 16
+FAR = [[-10.0] * 3] * 2
+
+
+def _lattice(seed=0):
+    rng = np.random.default_rng(seed)
+    pos = grid_positions(DIM, DIM, lower=(0.0, 0.1, 0.0)).reshape(DIM, DIM, 3)
+    pos += rng.normal(0, 1e-3, pos.shape)
+    P = np.moveaxis(pos, -1, 0).astype(np.float32)
+    V = rng.normal(0, 1e-2, (3, DIM, DIM)).astype(np.float32)
+    w = np.full((DIM, DIM), DIM * DIM / 0.5, np.float32)
+    return P, V, w
+
+
+@pytest.mark.parametrize("dims,picker,picker_last", [
+    ((16, 16), FAR, True),  # full grid
+    ((12, 14), FAR, True),  # non-full grid: dimx < max_dimx
+    ((16, 16), [[0.04, 0.1, 0.04], [-10.0] * 3], False),  # active picker
+])
+def test_substeps_match_pallas(dims, picker, picker_last):
+    P, V, w = _lattice()
+    jp = JParams()
+    jt = jax_topology(dims[0], dims[1], max_dimx=DIM, max_dimy=DIM)
+    jvec = jax_pack(jp, jt, jnp.asarray(picker, jnp.float32), 0.02,
+                    jp.dt / 4, jsolver.CHEBYSHEV_RHO)
+    kw = dict(n_sub=2, iterations=16, picker_last=picker_last)
+    jout = pallas_substeps(jvec[None], jnp.asarray(P)[None],
+                           jnp.asarray(V)[None], jnp.asarray(w)[None],
+                           cheb=True, interpret=True, **kw)
+    topo = build_grid_topology(dims[0], dims[1], max_dimx=DIM, max_dimy=DIM,
+                               device="cpu")
+    pvec = pack_sub_params(SolverParams(), topo,
+                           torch.tensor([picker], dtype=torch.float32), 0.02,
+                           np.float32(0.01) / np.float32(4))
+    np.testing.assert_array_equal(pvec[0].numpy(), np.asarray(jvec))
+    tout = kernels.substeps(pvec, torch.tensor(P)[None],
+                            torch.tensor(V)[None], torch.tensor(w)[None], **kw)
+    # tolerances of tests/test_pallas.py:76-81: float reassociation over 32
+    # Chebyshev iterations; V = dP / dt_sub amplifies a position error 400x
+    for name, j, t, tol in zip(("P", "V", "prev"), jout, tout,
+                               (3e-6, 3e-3, 3e-6)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=tol,
+                                   err_msg=name)
+    if dims[0] < DIM:  # slots outside the cloth never move
+        np.testing.assert_array_equal(tout[0][0, :, :, dims[0]:].numpy(),
+                                      P[:, :, dims[0]:])
+
+
+def _contact_inputs(seed=0, n=256):
+    rng = np.random.default_rng(seed)
+    # clumped points so contacts fire
+    P = rng.normal(0, 0.01, (3, n)).astype(np.float32)
+    prev = P + rng.normal(0, 1e-3, (3, n)).astype(np.float32)
+    w = np.full(n, 100.0, np.float32)
+    w[[3, 50]] = 0.0  # grasped -> immobile
+    active = np.arange(n) < n - 7  # tail slots are not cloth
+    return P, prev, w, active
+
+
+def test_contacts_match_pallas_on_sorted_arrays():
+    P, prev, w, active = _contact_inputs()
+    params = SolverParams()
+    order, srt = collisions.sort_particles(
+        torch.tensor(P)[None], torch.tensor(prev)[None],
+        torch.tensor(w)[None], torch.tensor(active)[None],
+        rest_dist=params.radius, lattice_w=16)
+    cp = collisions.contact_params(params, params.radius, 1, "cpu")
+    out = kernels.contacts(cp, *srt, window=8, iterations=4)
+    jp = JParams()
+    arrs = [jnp.asarray(a[0].numpy()) for a in srt]
+    ref_flat = _contacts_sorted_flat(jp, jp.radius, *arrs, window=8,
+                                     iterations=4)
+    pv = jnp.asarray(cp.numpy())
+    R, C = 16, 16  # pallas_contacts' folded layout
+    ref_pal = pallas_contacts(pv, *[a.reshape(R, C)[None] for a in arrs],
+                              window=8, iterations=4, interpret=True)
+    for c in range(3):
+        # sums in another order: tests/test_pallas.py:158 tolerance
+        np.testing.assert_allclose(out[c][0].numpy(),
+                                   np.asarray(ref_flat[c]), atol=1e-6)
+        np.testing.assert_allclose(out[c][0].numpy(),
+                                   np.asarray(ref_pal[c][0]).reshape(-1),
+                                   atol=1e-6)
+    assert max(float((o - s).abs().max()) for o, s in zip(out, srt)) > 1e-4
+
+
+def test_contact_group_matches_and_passes_through():
+    P, prev, w, active = _contact_inputs(seed=1)
+    jp = JParams()
+    ref = jax_contact_group(jnp.asarray(P), jnp.asarray(prev),
+                            jnp.asarray(w), jnp.asarray(active), jp,
+                            rest_dist=jp.radius, lattice_w=16, window=8,
+                            iterations=4, backend="xla")
+    out = collisions.contact_group(
+        torch.tensor(P)[None], torch.tensor(prev)[None],
+        torch.tensor(w)[None], torch.tensor(active)[None], SolverParams(),
+        rest_dist=SolverParams().radius, lattice_w=16, window=8,
+        iterations=4)[0].numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-6)
+    # immobile and inactive particles pass through exactly
+    fixed = (w == 0) | ~active
+    np.testing.assert_array_equal(out[:, fixed], P[:, fixed])
+    assert np.abs(out - P).max() > 1e-4
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    P, V, w = _lattice()
+    topo = build_grid_topology([16, 12], [16, 14], max_dimx=DIM,
+                               max_dimy=DIM, device=cuda_device)
+    picker = torch.tensor([[[0.04, 0.1, 0.04], [-10.0] * 3]] * 2,
+                          device=cuda_device)
+    pvec = pack_sub_params(SolverParams(), topo, picker, 0.02, 0.0025)
+    args = [torch.tensor(np.stack([a, a]), device=cuda_device)
+            for a in (P, V, w)]
+    kw = dict(n_sub=2, iterations=16, picker_last=False)
+    before = kernels.LAUNCHES["substeps"]
+    out_k = kernels.substeps(pvec, *args, **kw)
+    out_p = kernels.substeps_plain(pvec, *args, **kw)
+    assert kernels.LAUNCHES["substeps"] == before + 1
+    for a, b, tol in zip(out_k, out_p, (1e-5, 4e-3, 1e-5)):
+        assert float((a - b).abs().max()) <= tol
+    Pc, prevc, wc, activec = _contact_inputs()
+    order, srt = collisions.sort_particles(
+        *(torch.tensor(a, device=cuda_device)[None]
+          for a in (Pc, prevc, wc, activec)),
+        rest_dist=SolverParams().radius, lattice_w=16)
+    cp = collisions.contact_params(SolverParams(), SolverParams().radius, 1,
+                                   cuda_device)
+    ok = kernels.contacts(cp, *srt, window=8, iterations=4)
+    op = kernels.contacts_plain(cp, *srt, window=8, iterations=4)
+    for a, b in zip(ok, op):
+        assert float((a - b).abs().max()) <= 2e-6
