@@ -7,8 +7,13 @@ Phases, each printed on its own line with its wall seconds:
   0  card name and power limit (nvidia-smi), torch and CUDA versions
   1  build both CUDA kernels from csrc/ with nvcc (parallel)
   2  each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path (128 envs, 104x104 lattice, dims 64-104):
-     max abs error against the stated tolerance, CUDA-event times
+     shapes of its path: the grid kernels at the rect path's (128 envs,
+     104x104 lattice, dims 64-104), the aero launch of the substeps kernel
+     (one substep) there too, the mesh mode of the contacts kernel at the
+     shirt path's (16 shirts of data/shirts/*.obj on the 96x64 layered
+     lattice): max abs error against the stated tolerance, CUDA-event
+     times; plus one aero frame of 4 of the grid kernels' compressed
+     synthetic cloths on the card against the plain path on the CPU
   3  physics frame at bench.py's operating point: 512 envs of 100x100,
      4 substeps x 16 Chebyshev iterations, contacts 4/12/every 2 -> rate
   4  the main path: BatchSimEnv of 128 crumpled cloths (64-104) at
@@ -18,6 +23,15 @@ Phases, each printed on its own line with its wall seconds:
      against the plain path on the CPU
   5  torch.profiler over 16 interpreter steps of the main path: time per
      step, device time by kernel, the device's busy share
+  6  the shirt path: BatchSimEnv of 16 crumpled layered shirts (4 seeded
+     crumples of each data/shirts/*.obj) at production knobs: reset ->
+     batch_value_maps -> step, launch counters zeroed before and read
+     after; plus one frame of 4 shirts on the card against the CPU, and
+     phase 5's profile of 16 interpreter steps
+  7  the aero path: phase 4's start states with drag and lift set (an
+     option of the solver; flingbot scenes run none): one frame of 4 envs
+     on the card against the CPU, then reset -> batch_value_maps -> step
+     through the one-substep launches
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -50,7 +64,19 @@ PEAK_BYTES = 3.35e12
 # build must be held instead by phase 4's one frame of the card against
 # the CPU path, at 1e-4 m
 TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
-       "contacts.xyz": 2e-6}
+       "contacts.xyz": 2e-6, "substeps_aero.P": 1e-5,
+       "substeps_aero.prev": 1e-5, "substeps_aero.V": 4e-3,
+       "contacts_mesh.xyz": 2e-6}
+# the card's frame against the CPU plain path: the card's rsqrt is
+# approximate and CUDA divides by a host scalar through its reciprocal
+FRAME_TOL = 1e-4
+# a frame whose contacts are dense (phase 2's compressed cloths) amplifies
+# a last-place rounding difference past FRAME_TOL: such a frame is held
+# against NOISE_FACTOR times what NOISE relative noise on its input
+# positions moves the CPU frame by
+NOISE, NOISE_FACTOR = 1e-7, 2.0
+SHIRT_COPIES = 4  # seeded crumples of each data/shirts/*.obj
+AERO = dict(drag=8.0, lift=4.0, wind=(0.5, 0.0, -0.25))
 SMOKE_ENVS = 128
 BENCH_ENVS, BENCH_DIM, BENCH_STEPS = 512, 100, 10
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
@@ -115,18 +141,23 @@ def substeps_work(dims, H, W, n_sub, iterations):
     return nbytes, ops
 
 
-def contacts_work(n_active, N, window, iterations):
+def contacts_work(n_active, N, window, iterations, mesh=False):
     """(bytes, f32 ops) of one contacts launch.  Per pair inside the
     window per iteration ~66 ops (distance 10, penetration 3, friction
     tangent 26, scale 6, two endpoint updates 12, count 2, masks 7); per
-    particle per iteration 22 (Jacobi average 7, plane 15).  Bytes: six
-    coordinate arrays + packed ids + params read once, three written."""
+    particle per iteration 22 (Jacobi average 7, plane 15).  The mesh
+    mode's rest-pose filter, once per pair per launch: rest distance^2 6,
+    rest_dist^2 1, compare 1 = 8.  Bytes: six coordinate arrays + packed
+    ids + params (+ three rest coordinate arrays) read once, three
+    written."""
     B = len(n_active)
     ops = 0
     for n in n_active:
         pairs = sum(max(0, n - k) for k in range(1, window + 1))
-        ops += iterations * (66 * pairs + 22 * n)
-    nbytes = 4 * B * N * 7 + 4 * B * 8 + 4 * B * N * 3
+        ops += iterations * (66 * pairs + 22 * n) + (8 * pairs if mesh
+                                                      else 0)
+    nbytes = (4 * B * N * (10 if mesh else 7) + 4 * B * 8
+              + 4 * B * N * 3)
     return nbytes, ops
 
 
@@ -198,7 +229,25 @@ def synthetic_inputs(B, H, W, gen, device):
     pvec = pack_sub_params(SolverParams(), topo, picker.to(device), 0.02,
                            0.0025)
     to = lambda x: x.to(device).contiguous()  # noqa: E731
-    return topo, pvec, to(P), to(V), to(w), valid.to(device)
+    return topo, pvec, to(P), to(V), to(w), valid.to(device), to(picker)
+
+
+def synthetic_state(P, V, w, valid, picker):
+    """synthetic_inputs' cloths as a ClothState, particle 0 grasped by
+    picker 0."""
+    import torch
+
+    from flingbot_tpu_torch.engine.state import ClothState
+
+    B = P.shape[0]
+    n = valid.reshape(B, -1).sum(1, keepdim=True).float()
+    rest = torch.where(valid.reshape(B, -1), n / 0.5, 0.0)
+    picked = torch.full((B, 2), -1, dtype=torch.int64, device=P.device)
+    picked[:, 0] = 0
+    return ClothState(
+        positions=P.reshape(B, 3, -1), velocities=V.reshape(B, 3, -1),
+        inv_mass=w.reshape(B, -1), rest_inv_mass=rest,
+        active=valid.reshape(B, -1), picker_pos=picker, picked_idx=picked)
 
 
 def phase_kernels(device):
@@ -209,7 +258,8 @@ def phase_kernels(device):
 
     gen = torch.Generator().manual_seed(1)
     B, H, W = SMOKE_ENVS, 104, 104
-    topo, pvec, P, V, w, valid = synthetic_inputs(B, H, W, gen, device)
+    topo, pvec, P, V, w, valid, picker = synthetic_inputs(B, H, W, gen,
+                                                          device)
     kw = dict(n_sub=2, iterations=16, picker_last=False)
     out_k = kernels.substeps(pvec, P, V, w, **kw)
     out_p = kernels.substeps_plain(pvec, P, V, w, **kw)
@@ -226,7 +276,7 @@ def phase_kernels(device):
         max_abs_err=max(err[f"substeps.{k}"] for k in ("P", "V", "prev")),
         max_abs_err_by_output={k: err[f"substeps.{k}"]
                                for k in ("P", "V", "prev")},
-        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)}
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)}
 
     # contacts on the Morton-sorted state the substeps left behind
     params = SolverParams()
@@ -247,19 +297,153 @@ def phase_kernels(device):
     n_active = [dx * dy for dx, dy in dims]
     b_ms, b_by = bound(*contacts_work(n_active, H * W, 12, 4))
     rows["contacts"] = dict(max_abs_err=err["contacts.xyz"], ms=ms_k,
-                            plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+                            plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)
+    rows.update(kernel_aero(pvec, P, V, w, dims, err))
+    rows.update(kernel_mesh(device, err))
+    # the aero path's frame on these compressed cloths, card against CPU
+    frame_check(synthetic_state(P, V, w, valid, picker), topo,
+                SolverParams(**AERO), "compressed synthetic grid, aero",
+                ill_conditioned=True)
     for k, v in err.items():
         log(f"  {k}: max abs err {v:.3e} (tolerance {TOL[k]:.0e})")
     log(f"  contacts moved particles by up to {moved:.3e} m")
     for name, r in rows.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at B={B}")
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at "
+            f"B={r['B']}")
     bad = {k: v for k, v in err.items() if not v <= TOL[k]}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    if not moved > 0:
+    if not moved > 0 or not rows["contacts_mesh"]["moved"] > 0:
         raise AssertionError("contacts fired on no pair")
     return rows
+
+
+def kernel_aero(pvec, P, V, w, dims, err):
+    """The aero path's launch of the substeps kernel: one substep, the
+    picker push deferred to the contact group, at the rect path's shapes."""
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+
+    B, _, H, W = P.shape
+    kw = dict(n_sub=1, iterations=16, picker_last=False)
+    out_k = kernels.substeps(pvec, P, V, w, **kw)
+    out_p = kernels.substeps_plain(pvec, P, V, w, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("P", "V", "prev"), out_k, out_p):
+        err[f"substeps_aero.{name}"] = float((a - b).abs().max())
+        assert torch.isfinite(a).all(), name
+    ms_k = cuda_ms(lambda: kernels.substeps(pvec, P, V, w, **kw), 10)
+    ms_p = cuda_ms(lambda: kernels.substeps_plain(pvec, P, V, w, **kw), 3)
+    b_ms, b_by = bound(*substeps_work(dims, H, W, 1, 16))
+    by_out = {k: err[f"substeps_aero.{k}"] for k in ("P", "V", "prev")}
+    return {"substeps_aero": dict(
+        max_abs_err=max(by_out.values()), max_abs_err_by_output=by_out,
+        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)}
+
+
+def shirt_batch(device):
+    """16 layered shirts: SHIRT_COPIES of each data/shirts/*.obj, lifted
+    0.1 m, on the lattice of one shared LayeredSpec."""
+    import glob
+
+    from flingbot_tpu_torch.env.scene import make_batch, shirt_task
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "data", "shirts",
+                                          "shirt_*_processed.obj")))
+    if len(paths) != 4:
+        raise AssertionError(f"expected 4 shirt OBJs, found {paths}")
+    return make_batch([shirt_task(p) for p in paths
+                       for _ in range(SHIRT_COPIES)], device=device)
+
+
+def kernel_mesh(device, err):
+    """The mesh mode of the contacts kernel at the shirt path's shapes:
+    16 shirts pressed to 40% of their width with a 1 cm wrinkle (so that
+    pairs that the rest-pose filter keeps collide), one layered frame,
+    then Morton-sorted with their rest coordinates."""
+    import torch
+
+    from flingbot_tpu_torch.engine import collisions, kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    params = SolverParams()
+    topo, state = shirt_batch(device)
+    P0 = state.positions.clone()
+    P0[:, 0] *= 0.4
+    P0[:, 2] *= 0.4
+    P0[:, 1] += 0.01 * torch.sin(P0[:, 0] * 150.0) + 0.02
+    state = state.replace(positions=torch.where(state.active[:, None], P0,
+                                                state.positions))
+    moved = step(state, topo, params, **SOLVER)
+    B, _, N = state.positions.shape
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    _, srt = collisions.sort_particles(
+        moved.positions, state.positions, w, state.active,
+        rest_dist=params.radius, rest_positions=topo.rest_positions)
+    cp = collisions.contact_params(params, params.radius, B, device)
+    kw = dict(rests=srt[7:], window=12, iterations=4)
+    out_k = kernels.contacts(cp, *srt[:7], **kw)
+    out_p = kernels.contacts_plain(cp, *srt[:7], **kw)
+    torch.cuda.synchronize()
+    err["contacts_mesh.xyz"] = max(float((a - b).abs().max())
+                                   for a, b in zip(out_k, out_p))
+    shift = max(float((a - b).abs().max()) for a, b in zip(out_k, srt))
+    ms_k = cuda_ms(lambda: kernels.contacts(cp, *srt[:7], **kw), 10)
+    ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt[:7], **kw), 3)
+    n_active = state.active.sum(1).tolist()
+    b_ms, b_by = bound(*contacts_work(n_active, N, 12, 4, mesh=True))
+    log(f"  shirts: lattice {topo.H}x{topo.W} ({N} slots), "
+        f"{len(topo.offsets)} spring classes, {min(n_active)}-"
+        f"{max(n_active)} vertices; mesh contacts moved particles by up "
+        f"to {shift:.3e} m")
+    return {"contacts_mesh": dict(
+        max_abs_err=err["contacts_mesh.xyz"], ms=ms_k, plain_ms=ms_p,
+        bound_ms=b_ms, bound_by=b_by, B=B, moved=shift)}
+
+
+def frame_check(state, topo, params, what, ill_conditioned=False):
+    """One solver frame of 4 envs on the card against the plain path on
+    the CPU: max |dP| within FRAME_TOL, coverage to 6 digits.  Beside it,
+    the frame's own conditioning: how far the CPU frame moves when the
+    active positions carry a seeded relative noise of NOISE.  For inputs
+    marked ill_conditioned, where that spread exceeds FRAME_TOL, the card
+    must instead stay within NOISE_FACTOR times the spread."""
+    import torch
+
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.env.coverage import get_current_covered_area
+
+    sub = torch.arange(min(4, state.batch), device=state.device)
+    st4, tp4 = state.index(sub).to("cpu"), topo.index(sub).to("cpu")
+    gpu = step(st4.to(state.device), tp4.to(state.device), params, **SOLVER)
+    cpu = step(st4, tp4, params, **SOLVER)
+    P = st4.positions
+    noisy = P * (1 + NOISE * torch.randn(
+        P.shape, generator=torch.Generator().manual_seed(0)))
+    cpu_n = step(st4.replace(positions=torch.where(st4.active[:, None],
+                                                   noisy, P)),
+                 tp4, params, **SOLVER)
+    err = float((gpu.positions.cpu() - cpu.positions).abs().max())
+    spread = float((cpu_n.positions - cpu.positions).abs().max())
+    cov_g = get_current_covered_area(gpu.positions, gpu.active).cpu()
+    cov_c = get_current_covered_area(cpu.positions, cpu.active)
+    log(f"  one frame, 4 envs ({what}), card vs CPU plain path: max |dP| "
+        f"{err:.3e} m (the CPU frame moves {spread:.3e} m under {NOISE:.0e}"
+        f" relative input noise); coverage {cov_g.tolist()} vs "
+        f"{cov_c.tolist()}")
+    if ill_conditioned:
+        if not err <= NOISE_FACTOR * spread:
+            raise AssertionError(f"card frame disagrees with the CPU: {err}"
+                                 f" > {NOISE_FACTOR} x {spread}")
+        return gpu
+    if not err < FRAME_TOL:
+        raise AssertionError(f"card frame disagrees with the CPU: {err}")
+    if not torch.allclose(cov_g, cov_c, rtol=1e-6, atol=0.0):
+        raise AssertionError("card coverage disagrees with the CPU")
+    return gpu
 
 
 def phase_bench(device):
@@ -303,13 +487,8 @@ def phase_slice(device):
     import numpy as np
     import torch
 
-    from flingbot_tpu_torch.engine import kernels
-    from flingbot_tpu_torch.engine.solver import step
     from flingbot_tpu_torch.engine.state import SolverParams
-    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
-    from flingbot_tpu_torch.env.coverage import get_current_covered_area
     from flingbot_tpu_torch.env.scene import crumple, flat_tasks, make_batch
-    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
 
     rng = np.random.default_rng(0)
     sizes = [tuple(int(v) for v in rng.integers(64, 105, 2))
@@ -321,22 +500,26 @@ def phase_slice(device):
                     SOLVER)
     torch.cuda.synchronize()
     log(f"  crumpled {SMOKE_ENVS} cloths in {time.perf_counter() - t0:.2f} s")
+    frame_check(state, topo, params, "grid")
+    launches, env, vm = drive_path(state, topo, device, ("substeps",
+                                                        "contacts"))
+    return launches, (env, vm), (state, topo)
 
-    # the path on the card against the plain path on the CPU, one frame
-    sub = torch.arange(min(4, SMOKE_ENVS), device=device)
-    st4, tp4 = state.index(sub), topo.index(sub)
-    gpu = step(st4, tp4, params, **SOLVER)
-    cpu = step(st4.to("cpu"), tp4.to("cpu"), params, **SOLVER)
-    frame_err = float((gpu.positions.cpu() - cpu.positions).abs().max())
-    cov_g = get_current_covered_area(gpu.positions, gpu.active).cpu()
-    cov_c = get_current_covered_area(cpu.positions, cpu.active)
-    log(f"  one frame, 4 envs, card vs CPU plain path: max |dP| "
-        f"{frame_err:.3e} m; coverage {cov_g.tolist()} vs {cov_c.tolist()}")
-    if not frame_err < 1e-4:
-        raise AssertionError(f"card frame disagrees with the CPU: {frame_err}")
 
-    env = BatchSimEnv(device=device, scale_factors=SCALES, **SOLVER)
+def drive_path(state, topo, device, kernels_of_path, params=None):
+    """reset -> batch_value_maps -> step of a BatchSimEnv at production
+    knobs, launch counters zeroed just before and read just after; fails
+    if a kernel of the path never launched."""
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+
+    env = BatchSimEnv(device=device, scale_factors=SCALES,
+                      solver_params=params, **SOLVER)
     policy = MaximumValuePolicy(["fling"], 64, seed=0, device=device)
+    B = state.batch
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t = [time.perf_counter()]
@@ -356,8 +539,8 @@ def phase_slice(device):
 
     last = env.last
     T = 12 * len(SCALES)
-    assert tuple(obs.shape) == (SMOKE_ENVS, T, 4, 64, 64), obs.shape
-    assert tuple(vm.shape) == (SMOKE_ENVS, 1, T, 64, 64), vm.shape
+    assert tuple(obs.shape) == (B, T, 4, 64, 64), obs.shape
+    assert tuple(vm.shape) == (B, 1, T, 64, 64), vm.shape
     for name, x in (("obs", obs), ("value maps", vm),
                     ("positions", env.state.positions),
                     ("pre coverage", last.pre_coverage),
@@ -367,20 +550,62 @@ def phase_slice(device):
     pre, post = last.pre_coverage.cpu(), last.post_coverage.cpu()
     steps = last.sim_steps.cpu().float()
     log(f"  reset {s_reset:.2f} s, value maps {s_policy:.2f} s, step "
-        f"{s_step:.2f} s ({last.chunks} chunks of {env.chunk_steps})")
+        f"{s_step:.2f} s ({last.chunks} chunks of {env.chunk_steps} "
+        f"interpreter steps)")
     log(f"  sim steps per env: mean {steps.mean():.1f} max {steps.max():.0f}")
     log(f"  coverage m^2: pre mean {pre.mean():.5f} min {pre.min():.5f} "
         f"max {pre.max():.5f}; post mean {post.mean():.5f} min "
         f"{post.min():.5f} max {post.max():.5f}; grasped "
         f"{int((last.selection.p1_grasp | last.selection.p2_grasp).sum())}"
-        f"/{SMOKE_ENVS}; terminated {int(last.terminate.sum())}")
-    log(f"  launches on the main path: {launches}")
+        f"/{B}; terminated {int(last.terminate.sum())}")
+    log(f"  launches on the path: {launches}")
     if not (pre > 0).all():
         raise AssertionError("zero pre-action coverage")
-    for name in kernels.KERNELS:
+    for name in kernels_of_path:
         if launches[name] <= 0:
             raise AssertionError(f"{name} kernel never launched on the path")
-    return launches, (env, vm)
+    return launches, env, vm
+
+
+def phase_shirts(device):
+    """The shirt path: 16 crumpled layered shirts through the fling, then
+    a profile of 16 interpreter steps."""
+    import torch
+
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.env.scene import crumple
+
+    params = SolverParams()
+    t0 = time.perf_counter()
+    topo, state = shirt_batch(device)
+    state = crumple(state, topo, params, torch.Generator().manual_seed(0),
+                    SOLVER)
+    torch.cuda.synchronize()
+    log(f"  crumpled {state.batch} shirts on a {topo.H}x{topo.W} lattice in "
+        f"{time.perf_counter() - t0:.2f} s")
+    frame_check(state, topo, params, "shirts")
+    launches, env, vm = drive_path(state, topo, device, ("contacts_mesh",))
+    phase_profile(env, vm)
+    return launches
+
+
+def phase_aero(state, topo, device):
+    """The aero path: the rect path's crumpled start states with drag, lift
+    and wind set, through the one-substep launches; first one frame of 4
+    envs on the card against the CPU."""
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    params = SolverParams(**AERO)
+    aero = frame_check(state, topo, params, "grid, aero")
+    still = step(state.index(slice(0, 4)), topo.index(slice(0, 4)),
+                 SolverParams(), **SOLVER)
+    kick = float((aero.velocities - still.velocities).abs().max())
+    log(f"  the aero pass changed V by up to {kick:.3e} m/s in that frame")
+    if not kick > 1e-3:
+        raise AssertionError("the aero pass changed nothing")
+    launches, _, _ = drive_path(state, topo, device, ("substeps",), params)
+    return launches
 
 
 def phase_profile(env, vm, steps: int = 16):
@@ -420,7 +645,7 @@ def phase_profile(env, vm, steps: int = 16):
                if "substeps_kernel" in e.key or "contacts_kernel" in e.key)
     log(f"  {steps} interpreter steps at B={env.state.batch}: wall "
         f"{wall * 1e3 / steps:.3f} ms per step, device "
-        f"{total / steps:.3f} ms per step (the two kernels "
+        f"{total / steps:.3f} ms per step (the port's kernels "
         f"{ours / 1e3 / steps:.3f}), device busy share "
         f"{total / (wall * 1e3):.3f}, {len(events)} device kernel kinds")
     for e in sorted(events, key=dev, reverse=True)[:8]:
@@ -447,16 +672,28 @@ def main():
     with Phase("3 physics frame"):
         phase_bench(device)
     with Phase("4 main path"):
-        launches, (env, vm) = phase_slice(device)
+        launches, (env, vm), (state, topo) = phase_slice(device)
     with Phase("5 profile"):
         phase_profile(env, vm)
+    with Phase("6 shirt path"):
+        launches["contacts_mesh"] = phase_shirts(device)["contacts_mesh"]
+    with Phase("7 aero path"):
+        launches["substeps_aero"] = phase_aero(state, topo,
+                                               device)["substeps"]
 
-    sources = {"substeps": ("flingbot_tpu_torch/csrc/substeps.cu",
-                            "flingbot_tpu/engine/pallas_kernels.py:314"),
-               "contacts": ("flingbot_tpu_torch/csrc/contacts.cu",
-                            "flingbot_tpu/engine/pallas_kernels.py:563")}
+    sources = {
+        "substeps": ("flingbot_tpu_torch/csrc/substeps.cu",
+                     "flingbot_tpu/engine/pallas_kernels.py:314"),
+        "contacts": ("flingbot_tpu_torch/csrc/contacts.cu",
+                     "flingbot_tpu/engine/pallas_kernels.py:563"),
+        # the rest-pose filter of _contacts_kernel's mesh mode
+        "contacts_mesh": ("flingbot_tpu_torch/csrc/contacts.cu",
+                          "flingbot_tpu/engine/pallas_kernels.py:442"),
+        # the one-substep launches of the aero loop
+        "substeps_aero": ("flingbot_tpu_torch/csrc/substeps.cu",
+                          "flingbot_tpu/engine/solver.py:637")}
     table = []
-    for name in ("substeps", "contacts"):
+    for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -1,11 +1,13 @@
 // Self-collision projection on Morton-sorted particles, one thread block
-// per env (grid mode).
+// per env, in grid mode and in mesh mode.
 //
 // Replaces: flingbot_tpu/engine/pallas_kernels.py `_contacts_kernel`
-// (launched by `pallas_contacts`, pl.pallas_call at :563).  Per env, on
-// arrays already in Morton order, `iterations` x: test pairs (i, i + k)
-// for k = 1..window for penetration below rest_dist; drop lattice
-// neighbours by their packed ids (SelfCollideFilter); project with PBD
+// (launched by `pallas_contacts`, pl.pallas_call at :563), both of its
+// modes.  Per env, on arrays already in Morton order, `iterations` x: test
+// pairs (i, i + k) for k = 1..window for penetration below rest_dist;
+// drop filtered pairs (SelfCollideFilter: lattice neighbours by their
+// packed ids in grid mode; in mesh mode, pairs whose rest-pose distance^2
+// rd0^2 + rd1^2 + rd2^2 is below rest_dist^2); project with PBD
 // Coulomb particle friction against the substep's relative motion; split
 // by mass share; average per particle by its contact count (Jacobi); then
 // the ground plane with friction as the iteration's epilogue.
@@ -24,6 +26,19 @@
 // read through the read-only cache from global memory.  The TPU kernel's
 // folded (R, C) layout and row-seam shifts are gone: arrays are flat.
 // Built with -fmad=false, it matches contacts_plain bit for bit.
+//
+// Mesh mode: the rest coordinates are constant over the launch, so the
+// filter is too.  It is computed once per launch into a per-particle
+// bitmask in shared memory (bit k - 1 of mask[i]: pair (i, i + k) is
+// filtered; the neighbour role reads bit k - 1 of mask[i - k]), from rest
+// coordinates read once through the read-only cache.  Keeping the three
+// rest arrays resident instead would take 12 bytes a particle (172 KB at
+// the eval shirts' 6144 slots, 302 KB at the grid's 10816, which does not
+// fit) and recompute the filter 2 x window x iterations times; the mask
+// takes 4 bytes (window <= 32), so both modes share the capacity of
+// 1024 x 11 particles.  The packed id holds the flat slot index in mesh
+// mode; only its immobile / inactive bits are read.  Inactive slots, keyed
+// past every active one, sort to the end and stay passive.
 
 #include <cuda_runtime.h>
 
@@ -53,16 +68,19 @@ __device__ __forceinline__ Slot decode(int pk, float w_uni) {
   return s;
 }
 
+__device__ __forceinline__ bool lattice_nbr(const Slot& A, const Slot& C) {
+  return abs(C.lx - A.lx) <= 1 && abs(C.ly - A.ly) <= 1;
+}
+
 // Correction g of the pair (a, c) as seen from its start a, and whether
 // the pair is a live contact.  The start a takes +w_a * g, the
-// neighbour c takes -w_c * g.
+// neighbour c takes -w_c * g.  nbr: the pair is filtered.
 __device__ __forceinline__ bool pair(float ax, float ay, float az, float cx,
                                      float cy, float cz, float pax, float pay,
                                      float paz, float pcx, float pcy,
                                      float pcz, const Slot& A, const Slot& C,
-                                     float rest_d, float mu_p, float& gx,
-                                     float& gy, float& gz) {
-  const bool nbr = abs(C.lx - A.lx) <= 1 && abs(C.ly - A.ly) <= 1;
+                                     bool nbr, float rest_d, float mu_p,
+                                     float& gx, float& gy, float& gz) {
   const float wsum = A.w + C.w;
   const bool ok = A.active && C.active && !nbr && wsum > 0.f;
   const float coef = ok ? 1.f / (wsum + kEps) : 0.f;
@@ -89,18 +107,22 @@ __device__ __forceinline__ bool pair(float ax, float ay, float az, float cx,
   return live && ok;
 }
 
+template <bool kMesh>
 __global__ void __launch_bounds__(kThreads, 1)
 contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
                 const float* __restrict__ ys, const float* __restrict__ zs,
                 const float* __restrict__ pxs, const float* __restrict__ pys,
                 const float* __restrict__ pzs, const int* __restrict__ packed,
-                float* __restrict__ ox, float* __restrict__ oy,
-                float* __restrict__ oz, int N, int window, int iterations) {
+                const float* __restrict__ rxs, const float* __restrict__ rys,
+                const float* __restrict__ rzs, float* __restrict__ ox,
+                float* __restrict__ oy, float* __restrict__ oz, int N,
+                int window, int iterations) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + N;
   float* sz = sy + N;
   int* spk = reinterpret_cast<int*>(sz + N);
+  unsigned* smask = reinterpret_cast<unsigned*>(spk + N);  // mesh mode
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
@@ -117,6 +139,21 @@ contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
     sy[i] = ys[o + i];
     sz[i] = zs[o + i];
     spk[i] = packed[o + i];
+    if constexpr (kMesh) {
+      const float* RX = rxs + o;
+      const float* RY = rys + o;
+      const float* RZ = rzs + o;
+      const float rx = __ldg(RX + i), ry = __ldg(RY + i), rz = __ldg(RZ + i);
+      unsigned m = 0u;
+      for (int k = 1; k <= window && i + k < N; ++k) {
+        const float rd0 = rx - __ldg(RX + i + k);
+        const float rd1 = ry - __ldg(RY + i + k);
+        const float rd2 = rz - __ldg(RZ + i + k);
+        if (rd0 * rd0 + rd1 * rd1 + rd2 * rd2 < rest_d * rest_d)
+          m |= 1u << (k - 1);
+      }
+      smask[i] = m;
+    }
   }
   __syncthreads();
 
@@ -137,18 +174,22 @@ contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
           const int j = i + k;  // start role: pair (i, i + k)
           if (j < N) {
             const Slot C = decode(spk[j], w_uni);
+            const bool nbr = kMesh ? ((smask[i] >> (k - 1)) & 1u) != 0u
+                                   : lattice_nbr(A, C);
             const bool lv = pair(X, Y, Z, sx[j], sy[j], sz[j], pX, pY, pZ,
                                  __ldg(PX + j), __ldg(PY + j), __ldg(PZ + j),
-                                 A, C, rest_d, mu_p, gx, gy, gz);
+                                 A, C, nbr, rest_d, mu_p, gx, gy, gz);
             ax += A.w * gx; ay += A.w * gy; az += A.w * gz;
             cnt += lv ? 1.f : 0.f;
           }
           const int h = i - k;  // neighbour role: pair (i - k, i)
           if (h >= 0) {
             const Slot C = decode(spk[h], w_uni);
+            const bool nbr = kMesh ? ((smask[h] >> (k - 1)) & 1u) != 0u
+                                   : lattice_nbr(C, A);
             const bool lv = pair(sx[h], sy[h], sz[h], X, Y, Z, __ldg(PX + h),
                                  __ldg(PY + h), __ldg(PZ + h), pX, pY, pZ, C,
-                                 A, rest_d, mu_p, gx, gy, gz);
+                                 A, nbr, rest_d, mu_p, gx, gy, gz);
             ax -= A.w * gx; ay -= A.w * gy; az -= A.w * gz;
             cnt += lv ? 1.f : 0.f;
           }
@@ -186,6 +227,27 @@ contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
   }
 }
 
+template <bool kMesh>
+int launch(const void* params, const void* xs, const void* ys, const void* zs,
+           const void* pxs, const void* pys, const void* pzs,
+           const void* packed, const void* rxs, const void* rys,
+           const void* rzs, void* ox, void* oy, void* oz, int B, int N,
+           int window, int iterations, void* stream) {
+  const int smem = (kMesh ? 5 : 4) * N * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      contacts_kernel<kMesh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0) return 0;
+  contacts_kernel<kMesh><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)params, (const float*)xs, (const float*)ys,
+      (const float*)zs, (const float*)pxs, (const float*)pys,
+      (const float*)pzs, (const int*)packed, (const float*)rxs,
+      (const float*)rys, (const float*)rzs, (float*)ox, (float*)oy,
+      (float*)oz, N, window, iterations);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flingbot_contacts(const void* params, const void* xs,
@@ -194,17 +256,18 @@ extern "C" int flingbot_contacts(const void* params, const void* xs,
                                  const void* pzs, const void* packed,
                                  void* ox, void* oy, void* oz, int B, int N,
                                  int window, int iterations, void* stream) {
-  const int smem = 4 * N * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      contacts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (B == 0) return 0;
-  contacts_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)params, (const float*)xs, (const float*)ys,
-      (const float*)zs, (const float*)pxs, (const float*)pys,
-      (const float*)pzs, (const int*)packed, (float*)ox, (float*)oy,
-      (float*)oz, N, window, iterations);
-  return (int)cudaGetLastError();
+  return launch<false>(params, xs, ys, zs, pxs, pys, pzs, packed, nullptr,
+                       nullptr, nullptr, ox, oy, oz, B, N, window,
+                       iterations, stream);
+}
+
+extern "C" int flingbot_contacts_mesh(
+    const void* params, const void* xs, const void* ys, const void* zs,
+    const void* pxs, const void* pys, const void* pzs, const void* packed,
+    const void* rxs, const void* rys, const void* rzs, void* ox, void* oy,
+    void* oz, int B, int N, int window, int iterations, void* stream) {
+  return launch<true>(params, xs, ys, zs, pxs, pys, pzs, packed, rxs, rys,
+                      rzs, ox, oy, oz, B, N, window, iterations, stream);
 }
 
 extern "C" const char* flingbot_error_string(int e) {

@@ -3,10 +3,12 @@ PyTorch versions (counterpart of flingbot_tpu/engine/pallas_kernels.py).
 
   substeps  csrc/substeps.cu  <- _substeps_kernel / pallas_substeps
   contacts  csrc/contacts.cu  <- _contacts_kernel / pallas_contacts
+                                 (grid mode, and mesh mode with rests=)
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; it never falls back.  Each launch
-adds one to LAUNCHES[name].
+adds one to LAUNCHES[name]; a mesh-mode launch of the contacts kernel also
+adds one to LAUNCHES["contacts_mesh"].
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from flingbot_tpu_torch.engine import build as _build
 
 KERNELS = ("substeps", "contacts")
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in KERNELS + ("contacts_mesh",)}
 
 SUB_PARAM_LEN = 21
 # [0]=dt_sub [1]=gravity_y [2]=damping [3]=dynamic_friction
@@ -30,6 +32,8 @@ SUB_PARAM_LEN = 21
 CONTACT_PARAM_LEN = 8
 # [0]=rest_dist [1]=w_uniform [2]=mu_pair [3]=mu_plane
 # [4]=collision_distance [5..7]=unused
+# the mesh mode keeps its filter as one bit per window offset
+MAX_MESH_WINDOW = 32
 
 PACK_IMMOBILE_BIT = 20
 PACK_INACTIVE_BIT = 21
@@ -60,6 +64,9 @@ def build():
     libs["substeps"].flingbot_substeps.restype = i
     libs["contacts"].flingbot_contacts.argtypes = [p] * 11 + [i] * 4 + [p]
     libs["contacts"].flingbot_contacts.restype = i
+    libs["contacts"].flingbot_contacts_mesh.argtypes = (
+        [p] * 14 + [i] * 4 + [p])
+    libs["contacts"].flingbot_contacts_mesh.restype = i
     for lib in libs.values():
         lib.flingbot_error_string.argtypes = [i]
         lib.flingbot_error_string.restype = ctypes.c_char_p
@@ -161,40 +168,53 @@ def substeps_plain(pvec, P, V, w, *, n_sub: int, iterations: int,
 # kernel 2: windowed contacts on Morton-sorted particles
 # --------------------------------------------------------------------------
 
-def contacts(cparams, xs, ys, zs, pxs, pys, pzs, packed, *, window: int,
-             iterations: int):
+def contacts(cparams, xs, ys, zs, pxs, pys, pzs, packed, rests=None, *,
+             window: int, iterations: int):
     """Self-collision projection on Morton-sorted (B, N) arrays
-    (pallas_contacts, pallas_kernels.py:546-574, grid mode).  packed holds
-    the lattice ids and immobile / inactive bits.  Returns (xs', ys', zs')."""
+    (pallas_contacts, pallas_kernels.py:546-574).  Grid mode: packed holds
+    the lattice ids and immobile / inactive bits, and lattice neighbours
+    are not paired.  Mesh mode, rests = (rx, ry, rz) sorted rest
+    coordinates: packed holds the flat slot index and the same bits, and
+    pairs closer than rest_dist in the rest pose are not paired.  Returns
+    (xs', ys', zs')."""
     if xs.device.type == "cpu":
         return contacts_plain(cparams, xs, ys, zs, pxs, pys, pzs, packed,
-                              window=window, iterations=iterations)
+                              rests, window=window, iterations=iterations)
     B, N = xs.shape
+    mesh = rests is not None
     _check(cparams, "cparams", (B, CONTACT_PARAM_LEN))
-    for name, a in zip(("xs", "ys", "zs", "pxs", "pys", "pzs"),
-                       (xs, ys, zs, pxs, pys, pzs)):
+    coords = [xs, ys, zs, pxs, pys, pzs] + (list(rests) if mesh else [])
+    for name, a in zip(("xs", "ys", "zs", "pxs", "pys", "pzs", "rx", "ry",
+                        "rz"), coords):
         _check(a, name, (B, N))
     _check(packed, "packed", (B, N), torch.int32)
-    if N > MAX_PARTICLES or 4 * N * 4 > _SMEM_LIMIT:
+    # shared memory: sorted x, y, z and packed ids, plus the mesh mode's
+    # per-particle filter bits
+    if N > MAX_PARTICLES or (5 if mesh else 4) * N * 4 > _SMEM_LIMIT:
         raise ValueError(f"{N} particles exceed the kernel's capacity")
+    if mesh and window > MAX_MESH_WINDOW:
+        raise ValueError(f"mesh mode supports window <= {MAX_MESH_WINDOW}")
     lib = build()["contacts"]
     ox, oy, oz = (torch.empty_like(xs) for _ in range(3))
-    _launch(lib, lib.flingbot_contacts, [
-        cparams.data_ptr(), xs.data_ptr(), ys.data_ptr(), zs.data_ptr(),
-        pxs.data_ptr(), pys.data_ptr(), pzs.data_ptr(), packed.data_ptr(),
-        ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), B, N, int(window),
-        int(iterations)], xs.device)
+    fn = lib.flingbot_contacts_mesh if mesh else lib.flingbot_contacts
+    _launch(lib, fn, [cparams.data_ptr()] + [a.data_ptr() for a in coords[:6]]
+            + [packed.data_ptr()] + [a.data_ptr() for a in coords[6:]]
+            + [ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), B, N,
+               int(window), int(iterations)], xs.device)
     LAUNCHES["contacts"] += 1
+    if mesh:
+        LAUNCHES["contacts_mesh"] += 1
     return ox, oy, oz
 
 
-def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, *, window: int,
-                   iterations: int):
+def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
+                   window: int, iterations: int):
     """Plain PyTorch version of `contacts`: _contacts_sorted_flat
     (collisions.py:221-316) with a batch axis.  Pair (i, i+k) for
-    k = 1..window, lattice-neighbour filter, PBD Coulomb particle
-    friction against the substep's relative motion, mass-share split,
-    Jacobi average by contact count, then the ground plane."""
+    k = 1..window, SelfCollideFilter (lattice neighbours, or rest-pose
+    distance under rest_dist in mesh mode), PBD Coulomb particle friction
+    against the substep's relative motion, mass-share split, Jacobi
+    average by contact count, then the ground plane."""
     B, n = X.shape
     col = lambda k: cparams[:, k].view(B, 1)  # noqa: E731
     rest_d, w_uni, mu_p, mu_plane, coldist = (col(k) for k in range(5))
@@ -212,8 +232,12 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, *, window: int,
 
     static_k = []
     for k in range(1, window + 1):
-        nbr = ((torch.abs(fwd(lat_x, k) - lat_x) <= 1)
-               & (torch.abs(fwd(lat_y, k) - lat_y) <= 1))
+        if rests is None:
+            nbr = ((torch.abs(fwd(lat_x, k) - lat_x) <= 1)
+                   & (torch.abs(fwd(lat_y, k) - lat_y) <= 1))
+        else:
+            rd0, rd1, rd2 = (r - fwd(r, k) for r in rests)
+            nbr = rd0 * rd0 + rd1 * rd1 + rd2 * rd2 < rest_d * rest_d
         wn = fwd(w, k)
         wsum = w + wn
         ok = (i < n - k) & active & fwd(active, k) & ~nbr & (wsum > 0)

@@ -1,17 +1,22 @@
-"""XPBD grid-cloth step (counterpart of the grid path of
-flingbot_tpu/engine/solver.py, production knobs: Chebyshev-accelerated
-Jacobi springs, sorted-window contacts).
+"""XPBD cloth step (counterpart of flingbot_tpu/engine/solver.py at the
+production knobs: Chebyshev-accelerated Jacobi springs, sorted-window
+contacts), for grid cloths and layered-lattice shirts.
 
-Plain PyTorch functions on batched lattices, P (B, 3, H, W).  The hot loop
-runs in the two CUDA kernels of engine/kernels.py; the functions here are
-the pieces of their plain versions and the glue between launches.
+Grid cloths: plain PyTorch functions on batched lattices, P (B, 3, H, W).
+The hot loop runs in the two CUDA kernels of engine/kernels.py; the
+functions here are the pieces of their plain versions and the glue between
+launches.  One frame = `substeps` substeps in groups of `contact_every`.  A
+group is one `kernels.substeps` launch (integrate -> springs + plane
+iterations -> speed-up-only velocity clamp -> picker push, the last picker
+push deferred), then one contact group: contacts -> plane -> velocity add
+under the same clamp -> picker push (the pallas ordering of
+_step_grid_pallas, solver.py:571-660).  With drag or lift set, one launch
+per substep with the aero kick between launches (solver.py:617-644).
 
-One frame = `substeps` substeps in groups of `contact_every`.  A group is
-one `kernels.substeps` launch (integrate -> springs + plane iterations ->
-speed-up-only velocity clamp -> picker push, the last picker push
-deferred), then one contact group: contacts -> plane -> velocity add under
-the same clamp -> picker push (the pallas ordering of _step_grid_pallas,
-solver.py:571-660).
+Layered shirts: flat state P (B, 3, N) on the layered lattice; the spring
+solve gathers every offset class at once through a neighbour table, and
+the contact groups run the contacts kernel in mesh mode (_step_layered,
+solver.py:751-806).
 """
 
 from __future__ import annotations
@@ -19,26 +24,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flingbot_tpu_torch.engine import collisions, kernels
+from flingbot_tpu_torch.engine import aero, collisions, kernels
 from flingbot_tpu_torch.engine.picker import (
     DEFAULT_PICKER_RADIUS as PICKER_RADIUS)
 from flingbot_tpu_torch.engine.state import ClothState, SolverParams
 from flingbot_tpu_torch.engine.topology import (
-    GRID_STENCIL_CLASSES, GridTopology, lattice_valid)
+    GRID_STENCIL_CLASSES, GridTopology, LayeredGridTopology, lattice_valid,
+    layered_neighbours, shift2d)
 
 _EPS = 1e-9
 CHEBYSHEV_DELAY = 2  # plain Jacobi warm-up iterations
-
-
-def shift2d(a: torch.Tensor, dy: int, dx: int, fill=0) -> torch.Tensor:
-    """out[..., y, x] = a[..., y + dy, x + dx]; out of range -> fill."""
-    H, W = a.shape[-2], a.shape[-1]
-    out = torch.full_like(a, fill)
-    if abs(dy) >= H or abs(dx) >= W:
-        return out
-    out[..., max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)] = \
-        a[..., max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)]
-    return out
 
 
 def _col(pvec: torch.Tensor, k: int) -> torch.Tensor:
@@ -142,11 +137,12 @@ def solve_plane(P, prev, coldist, mu, moving):
 def solve_picker_spheres(P, picker_pos, R, moving):
     """Push particles out of the gripper spheres, position only
     (solve_picker_spheres, solver.py:346; no picker friction).
-    P (B, 3, H, W); picker_pos (B, K, 3); R = radius + collision
+    P (B, 3, ...); picker_pos (B, K, 3); R = radius + collision
     distance.  Every sphere pushes from the same P."""
+    tail = (1,) * (P.dim() - 2)
     delta = torch.zeros_like(P)
     for k in range(picker_pos.shape[1]):
-        d = P - picker_pos[:, k].view(-1, 3, 1, 1)
+        d = P - picker_pos[:, k].view((-1, 3) + tail)
         dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
                           + d[:, 2] * d[:, 2] + _EPS)
         pen = R - dist
@@ -196,9 +192,17 @@ def clamp_finalize(P, V, prev, dt, a_max, moving):
     return torch.where(moving[:, None], V + dv * sc[:, None], V)
 
 
+def _per_dt(dt, like: torch.Tensor):
+    """dt as a 0-dim tensor on `like`'s device: a CUDA division by a host
+    scalar multiplies by its reciprocal, which rounds unlike the CPU's (and
+    the JAX package's) true division."""
+    return torch.as_tensor(dt, dtype=torch.float32, device=like.device)
+
+
 def add_delta_clamped(P, P2, V, dt, dv_max, moving):
     """Apply a projection P -> P2 with its velocity contribution under the
-    speed-up-only clamp (_add_delta_clamped, solver.py:454)."""
+    speed-up-only clamp (_add_delta_clamped, solver.py:454).  dt: a float
+    or a 0-dim tensor (see _per_dt)."""
     dv = (P2 - P) / dt
     V_new = V + dv
     dv_norm = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
@@ -242,14 +246,42 @@ def pack_sub_params(params: SolverParams, topo: GridTopology,
     ], 1).contiguous()
 
 
-def step(state: ClothState, topo: GridTopology, params: SolverParams, *,
+def _aero_on(params: SolverParams) -> bool:
+    """Drag / lift set: the aero pass runs (wind acts only through them)."""
+    return params.drag != 0.0 or params.lift != 0.0
+
+
+def step(state: ClothState, topo, params: SolverParams, *,
          substeps: int = 4, iterations: int = 16, contact_every: int = 2,
          contact_iterations: int = 4,
          contact_window: int = 12) -> ClothState:
-    """Advance every env one frame (dt split into `substeps` substeps of
+    """Advance every env one frame: dt split into `substeps` substeps of
     `iterations` Chebyshev iterations, self-collision every
-    `contact_every` substeps): the production grid step of
-    solver.step(backend="pallas", spring_mode="chebyshev")."""
+    `contact_every` substeps (solver.step(backend="pallas",
+    spring_mode="chebyshev", contact_mode="sort")).  Dispatches on the
+    topology as solver.py:529-550 does: grid cloths, layered shirts."""
+    if substeps % contact_every:
+        raise ValueError("substeps must be divisible by contact_every")
+    kw = dict(substeps=substeps, iterations=iterations,
+              contact_every=contact_every,
+              contact_iterations=contact_iterations,
+              contact_window=contact_window)
+    if isinstance(topo, GridTopology):
+        return _step_grid(state, topo, params, **kw)
+    if isinstance(topo, LayeredGridTopology):
+        return _step_layered(state, topo, params, **kw)
+    raise TypeError(f"no solver step for {type(topo).__name__}")
+
+
+def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
+               contact_iterations, contact_window):
+    """The grid step of _step_grid_pallas (solver.py:562-660).  Without
+    aero: one fused `kernels.substeps` launch per group of `contact_every`
+    substeps, the group's last picker push deferred past its contact
+    group.  With drag or lift set (solver.py:617-644): one launch per
+    substep, the aero kick on the post-gravity velocity applied between
+    launches (the kernel integrates gravity and damping itself), and a
+    contact group after every `contact_every`-th substep."""
     B, H, W = state.batch, topo.max_dimy, topo.max_dimx
     P = state.positions.view(B, 3, H, W)
     V = state.velocities.view(B, 3, H, W)
@@ -260,15 +292,14 @@ def step(state: ClothState, topo: GridTopology, params: SolverParams, *,
     dv_max = np.float32(params.max_acceleration) * dt_sub
     pvec = pack_sub_params(params, topo, state.picker_pos, PICKER_RADIUS,
                            dt_sub)
-    assert substeps % contact_every == 0, \
-        "substeps must be divisible by contact_every"
     R = float(np.float32(PICKER_RADIUS) + np.float32(
         params.collision_distance))
     flat_valid = valid.reshape(B, -1)
-    for _ in range(substeps // contact_every):
-        P, V, prevL = kernels.substeps(
-            pvec, P.contiguous(), V.contiguous(), w, n_sub=contact_every,
-            iterations=iterations, picker_last=False)
+    dt_t = _per_dt(dt_sub, P)
+
+    def contacts(P, V, prevL):
+        # contacts -> plane -> velocity add under the speed-up-only clamp
+        # -> picker push (the kernel already clamped the spring phase)
         P2 = collisions.contact_group(
             P.reshape(B, 3, -1), prevL.reshape(B, 3, -1), w.reshape(B, -1),
             flat_valid, params, rest_dist=params.radius, lattice_w=W,
@@ -276,8 +307,150 @@ def step(state: ClothState, topo: GridTopology, params: SolverParams, *,
             iterations=contact_iterations).view(B, 3, H, W)
         P2 = solve_plane(P2, prevL, params.collision_distance,
                          params.dynamic_friction, moving)
-        P, V = add_delta_clamped(P, P2, V, float(dt_sub), float(dv_max),
-                                 moving)
-        P = solve_picker_spheres(P, state.picker_pos, R, moving)
+        P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
+        return solve_picker_spheres(P, state.picker_pos, R, moving), V
+
+    if _aero_on(params):
+        g_dt = dt_sub * torch.tensor(params.gravity, dtype=torch.float32,
+                                     device=P.device).view(1, 3, 1, 1)
+        for s in range(substeps):
+            kick = aero.aero_accel(V + g_dt, aero.grid_normals(P, valid),
+                                   params, moving)
+            V = V + dt_sub * kick
+            contact_now = (s + 1) % contact_every == 0
+            P, V, prevL = kernels.substeps(
+                pvec, P.contiguous(), V.contiguous(), w, n_sub=1,
+                iterations=iterations, picker_last=not contact_now)
+            if contact_now:
+                P, V = contacts(P, V, prevL)
+    else:
+        for _ in range(substeps // contact_every):
+            P, V, prevL = kernels.substeps(
+                pvec, P.contiguous(), V.contiguous(), w, n_sub=contact_every,
+                iterations=iterations, picker_last=False)
+            P, V = contacts(P, V, prevL)
     return state.replace(positions=P.reshape(B, 3, -1),
                          velocities=V.reshape(B, 3, -1))
+
+
+# --------------------------------------------------------------------------
+# layered shirts (_step_layered, solver.py:751-806)
+# --------------------------------------------------------------------------
+
+def layered_spring_planes(w, topo: LayeredGridTopology):
+    """The per-frame constants of solve_springs_layered for inverse masses
+    w (B, N): each class's rest, stiffness, neighbour mass, live mask and
+    denominator, (B, K, N) each, with the topology's neighbour tables."""
+    B, N = w.shape
+    K = len(topo.offsets)
+    nbr, nbr_ok, inv, inv_ok = layered_neighbours(topo.offsets, topo.H,
+                                                  topo.W, w.device)
+    stiff = topo.stiff.reshape(B, K, N)
+    wb = torch.where(nbr_ok, w[:, nbr], 0.0)
+    wsum = w[:, None] + wb
+    # dB of class k lands on slot s from base inv[k, s]: an index into the
+    # flattened (K * N) planes, with one zero column past the end for the
+    # slots no class-k spring ends at
+    k_base = torch.arange(K, device=w.device).view(K, 1) * N
+    inv_flat = torch.where(inv_ok, inv + k_base, K * N).reshape(-1)
+    return dict(nbr=nbr.reshape(-1), inv=inv_flat, stiff=stiff,
+                rest=topo.rest.reshape(B, K, N), wb=wb,
+                live=(stiff > 0) & (wsum > 0), den=wsum + _EPS,
+                count=torch.clamp(topo.count.reshape(B, N), min=1.0))
+
+
+def solve_springs_layered(P, w, planes, relax):
+    """One Jacobi pass with local relaxation over the layered lattice
+    (solve_springs_layered, solver.py:300-326).  P (B, 3, N); w (B, N);
+    planes from layered_spring_planes.  All K classes are gathered at once
+    through the neighbour table; each base slot keeps dA = w s d and its
+    neighbour gets dB = -w_b s d through the inverse table.  The sum over
+    classes runs in another order than the JAX loop's."""
+    B, _, N = P.shape
+    K = planes["stiff"].shape[1]
+    d = P[:, :, planes["nbr"]].view(B, 3, K, N) - P[:, :, None]
+    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                      + d[:, 2] * d[:, 2] + _EPS)
+    C = dist - planes["rest"]
+    s = torch.where(planes["live"],
+                    planes["stiff"] * C / (planes["den"] * dist), 0.0)
+    dA = (w[:, None] * s)[:, None] * d
+    dB = (-(planes["wb"] * s))[:, None] * d
+    dB = torch.cat([dB.reshape(B, 3, K * N), dB.new_zeros(B, 3, 1)], 2)
+    acc = dA.sum(2) + dB[:, :, planes["inv"]].view(B, 3, K, N).sum(2)
+    return P + relax * acc / planes["count"][:, None]
+
+
+def finalize_velocity(P, V, prev, dt, dv_max, moving):
+    """Velocity finalize with the speed-up-only maxAcceleration clamp in the
+    sqrt / divide form of _substep (solver.py:437-444); the substeps
+    kernel's rsqrt form (clamp_finalize) rounds differently, and the clamp
+    is discontinuous.  dt: a float or a 0-dim tensor (see _per_dt)."""
+    V_new = (P - prev) / dt
+    dv = V_new - V
+    dv_norm = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
+                         + dv[:, 2] * dv[:, 2] + _EPS)
+    speeding = (V_new[:, 0] * V_new[:, 0] + V_new[:, 1] * V_new[:, 1]
+                + V_new[:, 2] * V_new[:, 2]
+                > V[:, 0] * V[:, 0] + V[:, 1] * V[:, 1] + V[:, 2] * V[:, 2])
+    scale = torch.where(speeding, torch.clamp(dv_max / dv_norm, max=1.0),
+                        1.0)
+    return torch.where(moving[:, None], V + dv * scale[:, None], V)
+
+
+def _step_layered(state, topo, params, *, substeps, iterations,
+                  contact_every, contact_iterations, contact_window):
+    """Layered-lattice shirt step (_step_layered + _run_substeps +
+    _substep, solver.py:395-487,751-806) on flat (B, 3, N) state.  Each
+    substep: integrate -> Chebyshev springs + plane -> velocity finalize
+    -> (every `contact_every`-th substep) contact group in mesh mode ->
+    plane -> velocity add under the clamp; then the picker push, after
+    every substep (position only: picker_friction = 0, as in
+    production)."""
+    if _aero_on(params):
+        # layered aero needs the mesh normals' scatter-add (aero.py:43-69),
+        # which the port does not have yet
+        raise NotImplementedError(
+            "drag / lift on layered shirts: aero is ported for grid cloths "
+            "only")
+    if params.picker_friction != 0.0:
+        # the JAX layered path applies picker friction against the
+        # substep's entry positions (solver.py:486-487); the port has the
+        # production push only
+        raise NotImplementedError(
+            "picker_friction on layered shirts is not ported")
+    P, V = state.positions, state.velocities
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    moving = state.active & (w > 0)
+    mm = moving[:, None]
+    f = np.float32
+    dt = f(params.dt) / f(substeps)
+    dv_max = f(params.max_acceleration) * dt
+    damp = float(max(f(0.0), f(1.0) - f(params.damping) * dt))
+    g_dt = dt * torch.tensor(params.gravity, dtype=torch.float32,
+                             device=P.device).view(1, 3, 1)
+    rho2 = f(params.chebyshev_rho) * f(params.chebyshev_rho)
+    R = float(f(PICKER_RADIUS) + f(params.collision_distance))
+    planes = layered_spring_planes(w, topo)
+    dt_t = _per_dt(dt, P)
+    relax = float(f(params.relaxation_factor))
+    for i in range(substeps):
+        V = torch.where(mm, (V + g_dt) * damp, 0.0)
+        prev = P
+        P = torch.where(mm, P + float(dt) * V, P)
+        P = chebyshev_loop(
+            P, lambda Q: solve_springs_layered(Q, w, planes, relax),
+            iterations,
+            lambda Q: solve_plane(Q, prev, params.collision_distance,
+                                  params.dynamic_friction, moving), rho2)
+        V = finalize_velocity(P, V, prev, dt_t, float(dv_max), moving)
+        if (i + 1) % contact_every == 0:
+            P2 = collisions.contact_group(
+                P, prev, w, state.active, params, rest_dist=params.radius,
+                rest_positions=topo.rest_positions, window=contact_window,
+                iterations=contact_iterations)
+            P2 = solve_plane(P2, prev, params.collision_distance,
+                             params.dynamic_friction, moving)
+            P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
+        P = solve_picker_spheres(P, state.picker_pos, R, moving)
+    return state.replace(positions=P, velocities=V)

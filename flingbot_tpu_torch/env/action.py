@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from flingbot_tpu_torch.engine.solver import shift2d
+from flingbot_tpu_torch.engine.topology import shift2d
 from flingbot_tpu_torch.env.observation import Observation
 from flingbot_tpu_torch.learning.transforms import transform_pixels_to_source
 from flingbot_tpu_torch.render.camera import pixel_to_world

@@ -1,5 +1,6 @@
-"""BatchSimEnv: a batch of grid-cloth envs stepping in lockstep on one
-card (counterpart of flingbot_tpu/env/batch_env.py, eval path).
+"""BatchSimEnv: a batch of cloth envs (grid cloths, or shirts on one
+layered lattice) stepping in lockstep on one card (counterpart of
+flingbot_tpu/env/batch_env.py, eval path).
 
     obs = env.reset(state, topo)        # (B, T, 4, D, D)
     vm = policy.batch_value_maps(obs)   # (B, P, T, D, D)
@@ -61,7 +62,8 @@ class BatchSimEnv:
                  contact_every: int = 2, contact_iterations: int = 4,
                  contact_window: int = 12, domain_randomization: bool = True,
                  chunk_steps: int = 64, max_program_steps: int = 4000,
-                 seed: int = 0, device="cuda"):
+                 solver_params: SolverParams | None = None, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.rotations = torch.as_tensor(rotation_list(num_rotations),
                                          device=self.device)
@@ -76,7 +78,9 @@ class BatchSimEnv:
             contact_iterations=contact_iterations,
             contact_window=contact_window)
         self.prim_cfg = PrimitiveConfig(max_program_steps=max_program_steps)
-        self.params = SolverParams()
+        # solver_params: SolverParams with overrides (the JAX env's
+        # solver_overrides); drag or lift set turns the aero pass on
+        self.params = solver_params or SolverParams()
         self.chunk_steps = int(chunk_steps)
         self.domain_randomization = domain_randomization
         self.generator = torch.Generator().manual_seed(seed)
@@ -85,8 +89,9 @@ class BatchSimEnv:
 
     # ------------------------------------------------------------------
 
-    def reset(self, state: ClothState, topo: GridTopology) -> torch.Tensor:
-        """Load start states (arms parked), settle one step, observe."""
+    def reset(self, state: ClothState, topo) -> torch.Tensor:
+        """Load start states (arms parked), settle one step, observe.
+        topo: a GridTopology or a LayeredGridTopology."""
         park = torch.tensor(PARK_PICKERS, dtype=torch.float32,
                             device=self.device)
         self.topo = topo
@@ -105,9 +110,7 @@ class BatchSimEnv:
         """Render and warp in slices of OBS_CHUNK envs: one slice's 96-view
         temporaries are a few hundred MB at render 400."""
         self.obs = None
-        faces, fmask = grid_triangles_dynamic(
-            self.topo.dimx, self.topo.dimy, self.topo.max_dimx,
-            self.topo.max_dimy)
+        faces, fmask = self._cloth_faces()
         outs = []
         for s in range(0, self.state.batch, OBS_CHUNK):
             sl = slice(s, s + OBS_CHUNK)
@@ -118,6 +121,15 @@ class BatchSimEnv:
                 palette=None if self.palette is None else (
                     self.palette[0][sl], self.palette[1][sl])))
         self.obs = Observation(*(torch.cat(x) for x in zip(*outs)))
+
+    def _cloth_faces(self):
+        """(faces (B, T, 3), mask (B, T)) in lattice slots for the
+        renderer's surface samples (_cloth_faces, batch_env.py:443-459)."""
+        t = self.topo
+        if isinstance(t, GridTopology):
+            return grid_triangles_dynamic(t.dimx, t.dimy, t.max_dimx,
+                                          t.max_dimy)
+        return t.triangles, t.tri_mask
 
     def step(self, value_maps: torch.Tensor) -> torch.Tensor:
         """value_maps (B, P, T, D, D) -> next obs stack (B, T, 4, D, D)."""

@@ -1,4 +1,5 @@
-"""The port's two kernel modules held against the Pallas kernels.
+"""The port's two kernel modules held against the Pallas kernels (the
+contacts kernel in grid and in mesh mode).
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
 the Pallas kernels in interpret mode, as tests/test_pallas.py does.  The
@@ -129,6 +130,96 @@ def test_contact_group_matches_and_passes_through():
     assert np.abs(out - P).max() > 1e-4
 
 
+def _shirt_contact_inputs(seed=0):
+    """A crumpled eval shirt (data/shirt_eval_16.hdf5, 96 x 56 lattice)
+    with seeded previous positions and two grasped vertices, Morton-sorted
+    in mesh mode: the 7 sorted arrays and the 3 sorted rest coordinates."""
+    from tests.test_torch_shirts import eval_tasks
+    from flingbot_tpu_torch.env.scene import make_batch
+
+    topo, state = make_batch(eval_tasks(1), device="cpu")
+    rng = np.random.default_rng(seed)
+    P = state.positions
+    prev = P + torch.tensor(rng.normal(0, 1e-3, P.shape), dtype=P.dtype)
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    w[0, topo.mesh_slot[0, :2]] = 0.0
+    order, srt = collisions.sort_particles(
+        P, prev, w, state.active, rest_dist=SolverParams().radius,
+        rest_positions=topo.rest_positions)
+    return (P, prev, w, state.active, topo), order, srt
+
+
+@pytest.mark.parametrize("iterations,tol", [(1, 1e-6), (4, 1e-5)])
+def test_mesh_contacts_match_pallas_and_xla_on_a_shirt(iterations, tol):
+    """(c) the mesh mode (rest-pose filter) of the plain contacts on sorted
+    shirt inputs against pallas_contacts(rests=..., interpret=True) and
+    _contacts_sorted_flat(rest=...).  The JAX package tests only the grid
+    mode of its kernel (tests/test_pallas.py:148-159).
+
+    One iteration: 1e-6, the grid mode's bound.  Four (production): 1e-5.
+    On the CPU, XLA contracts a * b + c into FMAs and rounds rsqrt unlike
+    1 / sqrt (in 29% of f32 inputs), so the port and the JAX package
+    differ by 1.5e-8 after one iteration; the contact count is
+    discontinuous, and on this input one pair flips in the second
+    iteration (measured 5.0e-6, then 2.9e-6 after four).  The two JAX
+    forms agree bit for bit, and a 1e-7 perturbation of their own input
+    moves them by 1.3e-4 to 7.3e-4 after four iterations."""
+    _, _, srt = _shirt_contact_inputs()
+    params = SolverParams()
+    cp = collisions.contact_params(params, params.radius, 1, "cpu")
+    kw = dict(window=12, iterations=iterations)
+    out = kernels.contacts(cp, *srt[:7], rests=srt[7:], **kw)
+    jp = JParams()
+    arrs = [jnp.asarray(a[0].numpy()) for a in srt]
+    ref_flat = _contacts_sorted_flat(jp, jp.radius, *arrs[:7],
+                                     rest=jnp.stack(arrs[7:]), **kw)
+    n = arrs[0].shape[0]
+    R, C = 16, n // 16  # pallas_contacts' folded layout, no padding
+    assert R * C == n
+    fold = [a.reshape(R, C)[None] for a in arrs]
+    ref_pal = pallas_contacts(jnp.asarray(cp.numpy()), *fold[:7],
+                              rests=fold[7:], interpret=True, **kw)
+    for c in range(3):
+        np.testing.assert_allclose(out[c][0].numpy(),
+                                   np.asarray(ref_flat[c]), atol=tol)
+        np.testing.assert_allclose(out[c][0].numpy(),
+                                   np.asarray(ref_pal[c][0]).reshape(-1),
+                                   atol=tol)
+    assert max(float((o - s).abs().max()) for o, s in zip(out, srt)) > 1e-4
+    # the rest filter drops pairs that the grid mode's lattice test, on
+    # the same packed ids, would keep
+    grid = kernels.contacts_plain(cp, *srt[:7], **kw)
+    assert max(float((a - b).abs().max()) for a, b in zip(out, grid)) > 0
+
+
+def test_mesh_contact_group_matches_and_passes_through():
+    """The whole mesh-mode contact group (sort, rest coordinates in sorted
+    order, kernel, inverse scatter) against collisions.contact_group(
+    rest_positions=...) of the JAX package."""
+    (P, prev, w, active, topo), _, _ = _shirt_contact_inputs(seed=1)
+    params = SolverParams()
+    out = collisions.contact_group(
+        P, prev, w, active, params, rest_dist=params.radius,
+        rest_positions=topo.rest_positions, window=12, iterations=4)
+    jp = JParams()
+    ref = jax_contact_group(
+        jnp.asarray(P[0].numpy()), jnp.asarray(prev[0].numpy()),
+        jnp.asarray(w[0].numpy()), jnp.asarray(active[0].numpy()), jp,
+        rest_dist=jp.radius,
+        rest_positions=jnp.asarray(topo.rest_positions[0].numpy()),
+        window=12, iterations=4, backend="xla")
+    # four iterations: 1e-5, as in the test above (XLA's CPU rounding;
+    # measured 3.0e-6)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), atol=1e-5)
+    fixed = ((w == 0) | ~active)[0].numpy()
+    np.testing.assert_array_equal(out[0].numpy()[:, fixed],
+                                  P[0].numpy()[:, fixed])
+    with pytest.raises(ValueError, match="exactly one"):
+        collisions.contact_group(P, prev, w, active, params,
+                                 rest_dist=params.radius, lattice_w=64,
+                                 rest_positions=topo.rest_positions)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -162,5 +253,25 @@ def test_cuda_kernels_match_plain(cuda_device):
                                    cuda_device)
     ok = kernels.contacts(cp, *srt, window=8, iterations=4)
     op = kernels.contacts_plain(cp, *srt, window=8, iterations=4)
+    for a, b in zip(ok, op):
+        assert float((a - b).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_contacts_match_plain(cuda_device):
+    """The mesh mode of csrc/contacts.cu against its plain version on a
+    crumpled eval shirt (5376 slots): the contacts tolerance, in effect
+    bit-equality under -fmad=false."""
+    _, _, srt = _shirt_contact_inputs()
+    srt = [a.to(cuda_device) for a in srt]
+    cp = collisions.contact_params(SolverParams(), SolverParams().radius, 1,
+                                   cuda_device)
+    before = dict(kernels.LAUNCHES)
+    ok = kernels.contacts(cp, *srt[:7], rests=srt[7:], window=12,
+                          iterations=4)
+    op = kernels.contacts_plain(cp, *srt[:7], rests=srt[7:], window=12,
+                                iterations=4)
+    assert kernels.LAUNCHES["contacts_mesh"] == before["contacts_mesh"] + 1
+    assert kernels.LAUNCHES["contacts"] == before["contacts"] + 1
     for a, b in zip(ok, op):
         assert float((a - b).abs().max()) <= 2e-6
