@@ -5,17 +5,23 @@
 
 Phases, each printed on its own line with its wall seconds:
   0  card name and power limit (nvidia-smi), torch and CUDA versions
-  1  build both CUDA kernels from csrc/ with nvcc (parallel)
+  1  build both CUDA kernels from csrc/ with nvcc (parallel); each
+     kernel's registers and spill bytes (fails on a spill), and the
+     clusters of the substeps kernel the card runs at once
   2  each kernel against its plain PyTorch version on the card, at the
      shapes of its path: the grid kernels at the rect path's (128 envs,
      104x104 lattice, dims 64-104), the aero launch of the substeps kernel
-     (one substep) there too, the mesh mode of the contacts kernel at the
-     shirt path's (16 shirts of data/shirts/*.obj on the 96x64 layered
-     lattice): max abs error against the stated tolerance, CUDA-event
-     times; plus one aero frame of 4 of the grid kernels' compressed
+     (one substep) there too, its Jacobi launch (spring_mode "jacobi"
+     without self-collision: 4 plain substeps) at phase 3's (512 full
+     100x100 grids), the mesh mode of the contacts kernel at the shirt
+     path's (16 shirts of data/shirts/*.obj on the 96x64 layered lattice):
+     max abs error against the stated tolerance, CUDA-event times; the
+     no-self-collision launch and contacts at window 16 / 8 iterations
+     checked too; plus one aero frame of 4 of the grid kernels' compressed
      synthetic cloths on the card against the plain path on the CPU
   3  physics frame at bench.py's operating point: 512 envs of 100x100,
-     4 substeps x 16 Chebyshev iterations, contacts 4/12/every 2 -> rate
+     4 substeps x 16 Chebyshev iterations, contacts 4/12/every 2 -> rate;
+     then one frame with spring_mode "jacobi" and no self-collision
   4  the main path: BatchSimEnv of 128 crumpled cloths (64-104) at
      production knobs (render 400, obs 64, 96 views, 16x8 value net,
      seeded init): reset -> batch_value_maps -> step, launch counters
@@ -67,6 +73,11 @@ TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
        "contacts.xyz": 2e-6, "substeps_aero.P": 1e-5,
        "substeps_aero.prev": 1e-5, "substeps_aero.V": 4e-3,
        "contacts_mesh.xyz": 2e-6}
+# the launches phase 2 adds hold to the bounds of their kind
+for _kind in ("substeps_jacobi", "substeps_nocontact"):
+    TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
+                for k in ("P", "prev", "V")})
+TOL["contacts_w16.xyz"] = TOL["contacts.xyz"]
 # the card's frame against the CPU plain path: the card's rsqrt is
 # approximate and CUDA divides by a host scalar through its reciprocal
 FRAME_TOL = 1e-4
@@ -122,21 +133,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 # work models for the bounds: operations and bytes this data needs
 # --------------------------------------------------------------------------
 
-def substeps_work(dims, H, W, n_sub, iterations):
+def substeps_work(dims, H, W, n_sub, iterations, cheb=True):
     """(bytes, f32 ops) of one substeps launch.  Per constraint per
     iteration: difference 3, squared length 6, rsqrt 1, relaxation 2,
     two scalings 2, two endpoint updates 12 (FMA = 2 ops) = 26; per
-    particle per iteration: count scaling 6, Chebyshev 9, plane 15 = 30;
-    per particle per substep: integrate 12, velocity clamp 25, two picker
-    spheres 30 = 67.  Bytes: P, V, w, params read once; P, V, prev
-    written once."""
+    particle per iteration: count scaling 6, Chebyshev 9 (cheb only),
+    plane 15 = 30; per particle per substep: integrate 12, velocity clamp
+    25, two picker spheres 30 = 67.  Bytes: P, V, w, params read once; P,
+    V, prev written once."""
     B = len(dims)
     ops = 0
+    per_particle = 30 if cheb else 21
     for dx, dy in dims:
         n = dx * dy
         cons = ((dx - 1) * dy + dx * (dy - 1) + (dx - 2) * dy + dx * (dy - 2)
                 + 2 * (dx - 1) * (dy - 1))
-        ops += n_sub * (iterations * (26 * cons + 30 * n) + 67 * n)
+        ops += n_sub * (iterations * (26 * cons + per_particle * n)
+                        + 67 * n)
     nbytes = 4 * B * (3 * H * W * 2 + H * W + 21) + 4 * B * 3 * H * W * 3
     return nbytes, ops
 
@@ -185,22 +198,36 @@ def phase_card():
     return out[0]
 
 
-def phase_build():
+def phase_build(device):
+    import re
+
     from flingbot_tpu_torch.engine import build, kernels
 
     t0 = time.perf_counter()
     kernels.build()
     log(f"built {list(kernels.KERNELS)} in {time.perf_counter() - t0:.2f} s "
         f"into {build.build_dir()}")
+    spills = 0
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+            spills += sum(int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+    if spills:
+        raise AssertionError(f"a kernel spills registers ({spills} bytes)")
+    for H in (104, BENCH_DIM):
+        band, smem = kernels.substeps_band(H, H)
+        n = kernels.substeps_max_clusters(device.index or 0, smem)
+        log(f"  substeps at {H}x{H}, cluster of {kernels.SUBSTEPS_CLUSTER} "
+            f"CTAs: band {band} rows, {smem} B shared memory per CTA, "
+            f"cudaOccupancyMaxActiveClusters {n}")
 
 
-def synthetic_inputs(B, H, W, gen, device):
+def synthetic_inputs(B, H, W, gen, device, full=False):
     """Wrinkled, compressed cloths (so contacts fire) of seeded dims in
-    64..H, an active picker touching each, seeded velocities."""
+    64..H (full: H x W), an active picker touching each, seeded
+    velocities."""
     import torch
 
     from flingbot_tpu_torch.engine.solver import pack_sub_params
@@ -209,6 +236,8 @@ def synthetic_inputs(B, H, W, gen, device):
         build_grid_topology, lattice_valid)
 
     dims = torch.randint(64, H + 1, (B, 2), generator=gen)
+    if full:
+        dims = torch.tensor([[W, H]] * B)
     topo = build_grid_topology(dims[:, 0].numpy(), dims[:, 1].numpy(),
                                max_dimx=W, max_dimy=H, device=device)
     iy = torch.arange(H).view(1, H, 1).float()
@@ -260,23 +289,31 @@ def phase_kernels(device):
     B, H, W = SMOKE_ENVS, 104, 104
     topo, pvec, P, V, w, valid, picker = synthetic_inputs(B, H, W, gen,
                                                           device)
-    kw = dict(n_sub=2, iterations=16, picker_last=False)
-    out_k = kernels.substeps(pvec, P, V, w, **kw)
-    out_p = kernels.substeps_plain(pvec, P, V, w, **kw)
-    torch.cuda.synchronize()
-    err = {}
-    for name, a, b in zip(("P", "V", "prev"), out_k, out_p):
-        err[f"substeps.{name}"] = float((a - b).abs().max())
-        assert torch.isfinite(a).all(), name
-    ms_k = cuda_ms(lambda: kernels.substeps(pvec, P, V, w, **kw), 10)
-    ms_p = cuda_ms(lambda: kernels.substeps_plain(pvec, P, V, w, **kw), 3)
     dims = list(zip(topo.dimx.tolist(), topo.dimy.tolist()))
-    b_ms, b_by = bound(*substeps_work(dims, H, W, 2, 16))
-    rows = {"substeps": dict(
-        max_abs_err=max(err[f"substeps.{k}"] for k in ("P", "V", "prev")),
-        max_abs_err_by_output={k: err[f"substeps.{k}"]
-                               for k in ("P", "V", "prev")},
-        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)}
+    err = {}
+    rows = {}
+    for name, kw in (
+            ("substeps", dict(n_sub=2, iterations=16, picker_last=False)),
+            ("substeps_aero", dict(n_sub=1, iterations=16,
+                                   picker_last=False))):
+        rows[name], out = kernel_substeps(name, pvec, P, V, w, dims, err, kw)
+        if name == "substeps":
+            out_k = out
+    # the no-self-collision launch of the Chebyshev path (checked, not a
+    # row: the same kernel and arithmetic as substeps_jacobi's launch)
+    kernel_substeps("substeps_nocontact", pvec, P, V, w, dims, err,
+                    dict(n_sub=4, iterations=16, picker_last=True),
+                    timed=False)
+    # spring_mode "jacobi" without self-collision: one launch of all 4
+    # substeps, plain Jacobi, the last picker push included, at the shapes
+    # of phase 3's Jacobi frame, which counts its launches
+    _, jpvec, jP, jV, jw, _, _ = synthetic_inputs(
+        BENCH_ENVS, BENCH_DIM, BENCH_DIM, gen, device, full=True)
+    rows["substeps_jacobi"], _ = kernel_substeps(
+        "substeps_jacobi", jpvec, jP, jV, jw,
+        [(BENCH_DIM, BENCH_DIM)] * BENCH_ENVS, err,
+        dict(n_sub=4, iterations=16, cheb=False, picker_last=True))
+    del jP, jV, jw
 
     # contacts on the Morton-sorted state the substeps left behind
     params = SolverParams()
@@ -298,7 +335,15 @@ def phase_kernels(device):
     b_ms, b_by = bound(*contacts_work(n_active, H * W, 12, 4))
     rows["contacts"] = dict(max_abs_err=err["contacts.xyz"], ms=ms_k,
                             plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)
-    rows.update(kernel_aero(pvec, P, V, w, dims, err))
+    log_tiles("contacts", B, H * W, **ckw)
+    # the flex-parity knobs: window 16, 8 iterations (halo 128)
+    wkw = dict(window=16, iterations=8)
+    err["contacts_w16.xyz"] = max(
+        float((a - b).abs().max()) for a, b in zip(
+            kernels.contacts(cp, *srt, **wkw),
+            kernels.contacts_plain(cp, *srt, **wkw)))
+    log(f"  contacts at window 16, 8 iterations: "
+        f"{cuda_ms(lambda: kernels.contacts(cp, *srt, **wkw), 10):.3f} ms")
     rows.update(kernel_mesh(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
     frame_check(synthetic_state(P, V, w, valid, picker), topo,
@@ -319,28 +364,43 @@ def phase_kernels(device):
     return rows
 
 
-def kernel_aero(pvec, P, V, w, dims, err):
-    """The aero path's launch of the substeps kernel: one substep, the
-    picker push deferred to the contact group, at the rect path's shapes."""
+def kernel_substeps(name, pvec, P, V, w, dims, err, kw, timed=True):
+    """One launch configuration of the substeps kernel against its plain
+    version on the same inputs: max abs error of P, V, prev into err,
+    CUDA-event times and the bound.  Returns (row, outputs)."""
     import torch
 
     from flingbot_tpu_torch.engine import kernels
 
     B, _, H, W = P.shape
-    kw = dict(n_sub=1, iterations=16, picker_last=False)
     out_k = kernels.substeps(pvec, P, V, w, **kw)
     out_p = kernels.substeps_plain(pvec, P, V, w, **kw)
     torch.cuda.synchronize()
-    for name, a, b in zip(("P", "V", "prev"), out_k, out_p):
-        err[f"substeps_aero.{name}"] = float((a - b).abs().max())
-        assert torch.isfinite(a).all(), name
+    for o, a, b in zip(("P", "V", "prev"), out_k, out_p):
+        err[f"{name}.{o}"] = float((a - b).abs().max())
+        assert torch.isfinite(a).all(), (name, o)
+    if not timed:
+        return None, out_k
     ms_k = cuda_ms(lambda: kernels.substeps(pvec, P, V, w, **kw), 10)
     ms_p = cuda_ms(lambda: kernels.substeps_plain(pvec, P, V, w, **kw), 3)
-    b_ms, b_by = bound(*substeps_work(dims, H, W, 1, 16))
-    by_out = {k: err[f"substeps_aero.{k}"] for k in ("P", "V", "prev")}
-    return {"substeps_aero": dict(
-        max_abs_err=max(by_out.values()), max_abs_err_by_output=by_out,
-        ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)}
+    b_ms, b_by = bound(*substeps_work(dims, H, W, kw["n_sub"],
+                                      kw["iterations"], kw.get("cheb", True)))
+    by_out = {k: err[f"{name}.{k}"] for k in ("P", "V", "prev")}
+    return dict(max_abs_err=max(by_out.values()),
+                max_abs_err_by_output=by_out, ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by, B=B), out_k
+
+
+def log_tiles(name, B, N, window, iterations):
+    """Log the contacts kernel's tiling at these shapes; returns its block
+    count."""
+    from flingbot_tpu_torch.engine import kernels
+
+    tile, halo, n_tiles = kernels.contact_tiles(N, window, iterations)
+    log(f"  {name}: {B} envs x {N} slots in tiles of {tile} + 2 x {halo} "
+        f"halo slots: {B * n_tiles} blocks of "
+        f"{kernels.contact_smem(tile, halo)} B shared memory")
+    return B * n_tiles
 
 
 def shirt_batch(device):
@@ -395,6 +455,10 @@ def kernel_mesh(device, err):
     ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt[:7], **kw), 3)
     n_active = state.active.sum(1).tolist()
     b_ms, b_by = bound(*contacts_work(n_active, N, 12, 4, mesh=True))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if log_tiles("contacts_mesh", B, N, window=12, iterations=4) < sms:
+        raise AssertionError(f"the shirt path's contacts leave SMs idle "
+                             f"({sms} SMs)")
     log(f"  shirts: lattice {topo.H}x{topo.W} ({N} slots), "
         f"{len(topo.offsets)} spring classes, {min(n_active)}-"
         f"{max(n_active)} vertices; mesh contacts moved particles by up "
@@ -480,7 +544,25 @@ def phase_bench(device):
     log(f"  {BENCH_ENVS} envs x {d}x{d}: {ms:.3f} ms per frame -> "
         f"{rate:.1f} env-steps/s; launches {dict(kernels.LAUNCHES)} over "
         f"{BENCH_STEPS + 1} frames")
-    return rate
+    # spring_mode "jacobi" without self-collision: one launch of all 4
+    # plain-Jacobi substeps per frame (a warm-up frame, then the counted
+    # and timed one)
+    jkw = dict(SOLVER, spring_mode="jacobi", self_collision=False)
+    step(holder[0], topo, params, **jkw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(holder[0], topo, params, **jkw)
+    torch.cuda.synchronize()
+    ms_j = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    assert torch.isfinite(out.positions).all()
+    log(f"  one frame, spring_mode jacobi, no self-collision: {ms_j:.3f} ms"
+        f" -> {BENCH_ENVS / (ms_j / 1e3):.1f} env-steps/s; launches "
+        f"{launches}")
+    if launches["substeps"] != 1 or launches["contacts"] != 0:
+        raise AssertionError(f"jacobi frame launches: {launches}")
+    return rate, launches["substeps"]
 
 
 def phase_slice(device):
@@ -666,11 +748,11 @@ def main():
     with Phase("0 card"):
         phase_card()
     with Phase("1 build"):
-        phase_build()
+        phase_build(device)
     with Phase("2 kernels vs plain"):
         rows = phase_kernels(device)
     with Phase("3 physics frame"):
-        phase_bench(device)
+        _, jacobi_launches = phase_bench(device)
     with Phase("4 main path"):
         launches, (env, vm), (state, topo) = phase_slice(device)
     with Phase("5 profile"):
@@ -680,6 +762,7 @@ def main():
     with Phase("7 aero path"):
         launches["substeps_aero"] = phase_aero(state, topo,
                                                device)["substeps"]
+    launches["substeps_jacobi"] = jacobi_launches
 
     sources = {
         "substeps": ("flingbot_tpu_torch/csrc/substeps.cu",
@@ -691,9 +774,13 @@ def main():
                           "flingbot_tpu/engine/pallas_kernels.py:442"),
         # the one-substep launches of the aero loop
         "substeps_aero": ("flingbot_tpu_torch/csrc/substeps.cu",
-                          "flingbot_tpu/engine/solver.py:637")}
+                          "flingbot_tpu/engine/solver.py:637"),
+        # cheb=False: the plain Jacobi loop of _substeps_kernel
+        "substeps_jacobi": ("flingbot_tpu_torch/csrc/substeps.cu",
+                            "flingbot_tpu/engine/pallas_kernels.py:229")}
     table = []
-    for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero"):
+    for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero",
+                 "substeps_jacobi"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -1,5 +1,5 @@
-// Self-collision projection on Morton-sorted particles, one thread block
-// per env, in grid mode and in mesh mode.
+// Self-collision projection on Morton-sorted particles, halo-tiled, in grid
+// mode and in mesh mode.
 //
 // Replaces: flingbot_tpu/engine/pallas_kernels.py `_contacts_kernel`
 // (launched by `pallas_contacts`, pl.pallas_call at :563), both of its
@@ -14,38 +14,41 @@
 //
 // What bounds it on this card: f32 issue (about 70 flops per pair side,
 // 2 x window pair sides per particle per iteration) and shared-memory
-// bandwidth, not HBM: sorted positions and packed ids stay resident in
-// shared memory (173 KB at 104^2 particles) for the whole launch.
+// bandwidth, not HBM: each input is read once and each output written
+// once.
 //
-// Design: one block of 1024 threads per env, thread t owns sorted slots
-// t, t + 1024, ...  Each particle evaluates both of its roles, (i, i + k)
-// and (i - k, i), for every k and sums its own correction and count, so
-// no atomics are needed and the result is deterministic.  New positions
-// go to registers, a barrier separates the reads of an iteration from its
-// writes.  The previous positions are constant over the launch and are
-// read through the read-only cache from global memory.  The TPU kernel's
-// folded (R, C) layout and row-seam shifts are gone: arrays are flat.
-// Built with -fmad=false, it matches contacts_plain bit for bit.
+// Design: halo tiles.  After `iterations` passes a particle depends only
+// on the sorted slots within halo = window x iterations of it, so the
+// sorted array of each env is cut into tiles of `tile` owned slots [s, e)
+// (geometry from engine/kernels.py contact_tiles), one block each.  A
+// block loads [s - halo, e + halo), runs every pass on it alone and
+// writes back [s, e): blocks never wait for each other, and at the shirt
+// path's 16 envs x 6144 slots, 512-slot tiles give 192 blocks.  Pass it
+// only computes the slots that a later pass or the output still needs
+// (the region shrinks by `window` on each side per pass).  Shared memory
+// holds three float4 planes over the tile and its halos: two ping-pong
+// buffers (x, y, z, packed id) that a pass reads and writes in turn, so
+// one barrier separates passes, and (px, py, pz, mesh filter bits), the
+// previous positions that the friction reads: no pair reads device
+// memory.  Inactive slots, keyed past every active one, sort to the end,
+// so a tile whose first slot is inactive copies its input through.  Each
+// particle evaluates both of its roles, (i, i + k) and (i - k, i), for
+// every k and sums its own correction and count, so no atomics are needed
+// and the sum runs in the plain version's order.  Built with -fmad=false,
+// it matches contacts_plain bit for bit.
 //
 // Mesh mode: the rest coordinates are constant over the launch, so the
-// filter is too.  It is computed once per launch into a per-particle
-// bitmask in shared memory (bit k - 1 of mask[i]: pair (i, i + k) is
-// filtered; the neighbour role reads bit k - 1 of mask[i - k]), from rest
-// coordinates read once through the read-only cache.  Keeping the three
-// rest arrays resident instead would take 12 bytes a particle (172 KB at
-// the eval shirts' 6144 slots, 302 KB at the grid's 10816, which does not
-// fit) and recompute the filter 2 x window x iterations times; the mask
-// takes 4 bytes (window <= 32), so both modes share the capacity of
-// 1024 x 11 particles.  The packed id holds the flat slot index in mesh
-// mode; only its immobile / inactive bits are read.  Inactive slots, keyed
-// past every active one, sort to the end and stay passive.
+// filter is too.  A block computes it once into a per-slot bitmask (bit
+// k - 1 of mask[i]: pair (i, i + k) is filtered; the neighbour role reads
+// bit k - 1 of mask[i - k]; window <= 32) from rest coordinates staged in
+// the second position buffer.  The packed id holds the flat slot index in
+// mesh mode; only its immobile / inactive bits are read.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kPerThread = 11;  // 1024 * 11 >= 104 * 104
+constexpr int kThreads = 256;
 constexpr float kEps = 1e-9f;
 constexpr int kParamLen = 8;
 constexpr int kImmobileBit = 20;
@@ -108,7 +111,7 @@ __device__ __forceinline__ bool pair(float ax, float ay, float az, float cx,
 }
 
 template <bool kMesh>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads)
 contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
                 const float* __restrict__ ys, const float* __restrict__ zs,
                 const float* __restrict__ pxs, const float* __restrict__ pys,
@@ -116,158 +119,148 @@ contacts_kernel(const float* __restrict__ params, const float* __restrict__ xs,
                 const float* __restrict__ rxs, const float* __restrict__ rys,
                 const float* __restrict__ rzs, float* __restrict__ ox,
                 float* __restrict__ oy, float* __restrict__ oz, int N,
-                int window, int iterations) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + N;
-  float* sz = sy + N;
-  int* spk = reinterpret_cast<int*>(sz + N);
-  unsigned* smask = reinterpret_cast<unsigned*>(spk + N);  // mesh mode
-
-  const int b = blockIdx.x;
+                int window, int iterations, int tile, int halo, int n_tiles) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x / n_tiles;
+  const int s = (blockIdx.x - b * n_tiles) * tile;
+  const int e = min(N, s + tile);
   const int t = threadIdx.x;
+  const size_t o = (size_t)b * N;
+
+  if ((packed[o + s] >> kInactiveBit) & 1) {  // the env's inactive tail
+    for (int i = s + t; i < e; i += kThreads) {
+      ox[o + i] = xs[o + i];
+      oy[o + i] = ys[o + i];
+      oz[o + i] = zs[o + i];
+    }
+    return;
+  }
+
+  const int lo = max(0, s - halo);
+  const int n = min(N, e + halo) - lo;  // loaded slots [lo, lo + n)
+  const int cap = tile + 2 * halo;
+  float4* buf0 = smem4;
+  float4* buf1 = smem4 + cap;
+  float4* stat = smem4 + 2 * cap;  // px, py, pz, mesh filter bits
+
   const float* prm = params + (size_t)b * kParamLen;
   const float rest_d = prm[0], w_uni = prm[1], mu_p = prm[2];
   const float mu_plane = prm[3], coldist = prm[4];
-  const size_t o = (size_t)b * N;
-  const float* PX = pxs + o;
-  const float* PY = pys + o;
-  const float* PZ = pzs + o;
 
-  for (int i = t; i < N; i += kThreads) {
-    sx[i] = xs[o + i];
-    sy[i] = ys[o + i];
-    sz[i] = zs[o + i];
-    spk[i] = packed[o + i];
-    if constexpr (kMesh) {
-      const float* RX = rxs + o;
-      const float* RY = rys + o;
-      const float* RZ = rzs + o;
-      const float rx = __ldg(RX + i), ry = __ldg(RY + i), rz = __ldg(RZ + i);
+  for (int i = t; i < n; i += kThreads) {
+    const size_t g = o + lo + i;
+    buf0[i] = make_float4(xs[g], ys[g], zs[g], __int_as_float(packed[g]));
+    stat[i] = make_float4(pxs[g], pys[g], pzs[g], 0.f);
+    if constexpr (kMesh) buf1[i] = make_float4(rxs[g], rys[g], rzs[g], 0.f);
+  }
+  if constexpr (kMesh) {
+    __syncthreads();
+    for (int i = t; i < n; i += kThreads) {
+      const float4 ri = buf1[i];
       unsigned m = 0u;
-      for (int k = 1; k <= window && i + k < N; ++k) {
-        const float rd0 = rx - __ldg(RX + i + k);
-        const float rd1 = ry - __ldg(RY + i + k);
-        const float rd2 = rz - __ldg(RZ + i + k);
+      for (int k = 1; k <= window && i + k < n; ++k) {
+        const float4 rj = buf1[i + k];
+        const float rd0 = ri.x - rj.x, rd1 = ri.y - rj.y, rd2 = ri.z - rj.z;
         if (rd0 * rd0 + rd1 * rd1 + rd2 * rd2 < rest_d * rest_d)
           m |= 1u << (k - 1);
       }
-      smask[i] = m;
+      stat[i].w = __uint_as_float(m);
     }
   }
   __syncthreads();
 
   for (int it = 0; it < iterations; ++it) {
-    float nx[kPerThread], ny[kPerThread], nz[kPerThread];
-#pragma unroll
-    for (int kk = 0; kk < kPerThread; ++kk) {
-      const int i = t + kk * kThreads;
-      if (i < N) {
-        const Slot A = decode(spk[i], w_uni);
-        const bool immobile = ((spk[i] >> kImmobileBit) & 1) != 0;
-        const float ms = (A.active && !immobile) ? 1.f : 0.f;
-        const float X = sx[i], Y = sy[i], Z = sz[i];
-        const float pX = __ldg(PX + i), pY = __ldg(PY + i), pZ = __ldg(PZ + i);
-        float ax = 0.f, ay = 0.f, az = 0.f, cnt = 0.f;
-        for (int k = 1; k <= window; ++k) {
-          float gx, gy, gz;
-          const int j = i + k;  // start role: pair (i, i + k)
-          if (j < N) {
-            const Slot C = decode(spk[j], w_uni);
-            const bool nbr = kMesh ? ((smask[i] >> (k - 1)) & 1u) != 0u
-                                   : lattice_nbr(A, C);
-            const bool lv = pair(X, Y, Z, sx[j], sy[j], sz[j], pX, pY, pZ,
-                                 __ldg(PX + j), __ldg(PY + j), __ldg(PZ + j),
-                                 A, C, nbr, rest_d, mu_p, gx, gy, gz);
-            ax += A.w * gx; ay += A.w * gy; az += A.w * gz;
-            cnt += lv ? 1.f : 0.f;
-          }
-          const int h = i - k;  // neighbour role: pair (i - k, i)
-          if (h >= 0) {
-            const Slot C = decode(spk[h], w_uni);
-            const bool nbr = kMesh ? ((smask[h] >> (k - 1)) & 1u) != 0u
-                                   : lattice_nbr(C, A);
-            const bool lv = pair(sx[h], sy[h], sz[h], X, Y, Z, __ldg(PX + h),
-                                 __ldg(PY + h), __ldg(PZ + h), pX, pY, pZ, C,
-                                 A, nbr, rest_d, mu_p, gx, gy, gz);
-            ax -= A.w * gx; ay -= A.w * gy; az -= A.w * gz;
-            cnt += lv ? 1.f : 0.f;
-          }
+    const float4* src = (it & 1) ? buf1 : buf0;
+    float4* dst = (it & 1) ? buf0 : buf1;
+    // the slots a later pass or the output still reads
+    const int reach = (iterations - 1 - it) * window;
+    const int a = max(0, s - reach - lo);
+    const int z = min(n, e + reach - lo);
+    for (int i = a + t; i < z; i += kThreads) {
+      const float4 ci = src[i];
+      const float4 pi = stat[i];
+      const int pk = __float_as_int(ci.w);
+      const Slot A = decode(pk, w_uni);
+      const bool immobile = ((pk >> kImmobileBit) & 1) != 0;
+      const float ms = (A.active && !immobile) ? 1.f : 0.f;
+      const unsigned mi = kMesh ? __float_as_uint(pi.w) : 0u;
+      float ax = 0.f, ay = 0.f, az = 0.f, cnt = 0.f;
+      for (int k = 1; k <= window; ++k) {
+        float gx, gy, gz;
+        const int j = i + k;  // start role: pair (i, i + k)
+        if (j < n) {
+          const float4 cj = src[j];
+          const float4 pj = stat[j];
+          const Slot C = decode(__float_as_int(cj.w), w_uni);
+          const bool nbr = kMesh ? ((mi >> (k - 1)) & 1u) != 0u
+                                 : lattice_nbr(A, C);
+          const bool lv = pair(ci.x, ci.y, ci.z, cj.x, cj.y, cj.z, pi.x,
+                               pi.y, pi.z, pj.x, pj.y, pj.z, A, C, nbr,
+                               rest_d, mu_p, gx, gy, gz);
+          ax += A.w * gx; ay += A.w * gy; az += A.w * gz;
+          cnt += lv ? 1.f : 0.f;
         }
-        const float inv_cnt = ms / fmaxf(cnt, 1.f);
-        float x = X + ax * inv_cnt, y = Y + ay * inv_cnt, z = Z + az * inv_cnt;
-        // ground plane with Coulomb friction
-        const float pen = coldist - y;
-        const float cf = pen > 0.f ? ms : 0.f;
-        const float dx = x - pX, dz = z - pZ;
-        const float tn = sqrtf(dx * dx + dz * dz + kEps);
-        const float f = cf * fminf(1.f, mu_plane * fmaxf(pen, 0.f) / tn);
-        nx[kk] = x - dx * f;
-        ny[kk] = y + cf * pen;
-        nz[kk] = z - dz * f;
+        const int h = i - k;  // neighbour role: pair (i - k, i)
+        if (h >= 0) {
+          const float4 ch = src[h];
+          const float4 ph = stat[h];
+          const Slot C = decode(__float_as_int(ch.w), w_uni);
+          const bool nbr = kMesh ? ((__float_as_uint(ph.w) >> (k - 1)) & 1u)
+                                       != 0u
+                                 : lattice_nbr(C, A);
+          const bool lv = pair(ch.x, ch.y, ch.z, ci.x, ci.y, ci.z, ph.x,
+                               ph.y, ph.z, pi.x, pi.y, pi.z, C, A, nbr,
+                               rest_d, mu_p, gx, gy, gz);
+          ax -= A.w * gx; ay -= A.w * gy; az -= A.w * gz;
+          cnt += lv ? 1.f : 0.f;
+        }
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kPerThread; ++kk) {
-      const int i = t + kk * kThreads;
-      if (i < N) {
-        sx[i] = nx[kk];
-        sy[i] = ny[kk];
-        sz[i] = nz[kk];
-      }
+      const float inv_cnt = ms / fmaxf(cnt, 1.f);
+      float x = ci.x + ax * inv_cnt, y = ci.y + ay * inv_cnt,
+            zz = ci.z + az * inv_cnt;
+      // ground plane with Coulomb friction
+      const float pen = coldist - y;
+      const float cf = pen > 0.f ? ms : 0.f;
+      const float dx = x - pi.x, dz = zz - pi.z;
+      const float tn = sqrtf(dx * dx + dz * dz + kEps);
+      const float f = cf * fminf(1.f, mu_plane * fmaxf(pen, 0.f) / tn);
+      dst[i] = make_float4(x - dx * f, y + cf * pen, zz - dz * f, ci.w);
     }
     __syncthreads();
   }
 
-  for (int i = t; i < N; i += kThreads) {
-    ox[o + i] = sx[i];
-    oy[o + i] = sy[i];
-    oz[o + i] = sz[i];
+  const float4* res = (iterations & 1) ? buf1 : buf0;
+  for (int i = s + t; i < e; i += kThreads) {
+    const float4 r = res[i - lo];
+    ox[o + i] = r.x;
+    oy[o + i] = r.y;
+    oz[o + i] = r.z;
   }
-}
-
-template <bool kMesh>
-int launch(const void* params, const void* xs, const void* ys, const void* zs,
-           const void* pxs, const void* pys, const void* pzs,
-           const void* packed, const void* rxs, const void* rys,
-           const void* rzs, void* ox, void* oy, void* oz, int B, int N,
-           int window, int iterations, void* stream) {
-  const int smem = (kMesh ? 5 : 4) * N * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      contacts_kernel<kMesh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  if (B == 0) return 0;
-  contacts_kernel<kMesh><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)params, (const float*)xs, (const float*)ys,
-      (const float*)zs, (const float*)pxs, (const float*)pys,
-      (const float*)pzs, (const int*)packed, (const float*)rxs,
-      (const float*)rys, (const float*)rzs, (float*)ox, (float*)oy,
-      (float*)oz, N, window, iterations);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int flingbot_contacts(const void* params, const void* xs,
-                                 const void* ys, const void* zs,
-                                 const void* pxs, const void* pys,
-                                 const void* pzs, const void* packed,
-                                 void* ox, void* oy, void* oz, int B, int N,
-                                 int window, int iterations, void* stream) {
-  return launch<false>(params, xs, ys, zs, pxs, pys, pzs, packed, nullptr,
-                       nullptr, nullptr, ox, oy, oz, B, N, window,
-                       iterations, stream);
-}
-
-extern "C" int flingbot_contacts_mesh(
+// rxs == nullptr: grid mode; else mesh mode with the sorted rest
+// coordinates rxs, rys, rzs
+extern "C" int flingbot_contacts(
     const void* params, const void* xs, const void* ys, const void* zs,
     const void* pxs, const void* pys, const void* pzs, const void* packed,
     const void* rxs, const void* rys, const void* rzs, void* ox, void* oy,
-    void* oz, int B, int N, int window, int iterations, void* stream) {
-  return launch<true>(params, xs, ys, zs, pxs, pys, pzs, packed, rxs, rys,
-                      rzs, ox, oy, oz, B, N, window, iterations, stream);
+    void* oz, int B, int N, int window, int iterations, int tile, int halo,
+    int n_tiles, int smem, void* stream) {
+  const bool mesh = rxs != nullptr;
+  auto kernel = mesh ? contacts_kernel<true> : contacts_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0 || N == 0) return 0;
+  kernel<<<B * n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)params, (const float*)xs, (const float*)ys,
+      (const float*)zs, (const float*)pxs, (const float*)pys,
+      (const float*)pzs, (const int*)packed, (const float*)rxs,
+      (const float*)rys, (const float*)rzs, (float*)ox, (float*)oy,
+      (float*)oz, N, window, iterations, tile, halo, n_tiles);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* flingbot_error_string(int e) {

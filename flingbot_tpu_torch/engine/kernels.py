@@ -1,19 +1,24 @@
-"""The port's two CUDA kernels: ctypes wrappers, launch counters and plain
-PyTorch versions (counterpart of flingbot_tpu/engine/pallas_kernels.py).
+"""The port's two CUDA kernels: ctypes wrappers, launch counters, launch
+geometry and plain PyTorch versions (counterpart of
+flingbot_tpu/engine/pallas_kernels.py).
 
   substeps  csrc/substeps.cu  <- _substeps_kernel / pallas_substeps
+                                 (Chebyshev or plain Jacobi springs)
   contacts  csrc/contacts.cu  <- _contacts_kernel / pallas_contacts
                                  (grid mode, and mesh mode with rests=)
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; it never falls back.  Each launch
 adds one to LAUNCHES[name]; a mesh-mode launch of the contacts kernel also
-adds one to LAUNCHES["contacts_mesh"].
+adds one to LAUNCHES["contacts_mesh"].  The launch geometry (the substeps
+kernel's row bands, the contacts kernel's tiles) is computed here, so the
+CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,10 +43,16 @@ MAX_MESH_WINDOW = 32
 PACK_IMMOBILE_BIT = 20
 PACK_INACTIVE_BIT = 21
 
-# one block of 1024 threads per env, each thread owning <= 11 particles
-MAX_PARTICLES = 1024 * 11
 _EPS = 1e-9
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
+# substeps: one env across a cluster of SUBSTEPS_CLUSTER CTAs, each owning
+# a band of the env's rows; kCluster of csrc/substeps.cu, which launches
+# them (8, two CTAs per SM, ran faster than 4 at the rect path's shapes on
+# an H100: PERF.md)
+SUBSTEPS_CLUSTER = 8
+# contacts: owned slots per tile; 512 gives the 16-shirt path 192 blocks
+CONTACT_TILE = 512
 
 
 def reset_launch_counts():
@@ -60,13 +71,13 @@ def build():
     libs = _build.build(KERNELS)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    libs["substeps"].flingbot_substeps.argtypes = [p] * 8 + [i] * 6 + [p]
-    libs["substeps"].flingbot_substeps.restype = i
-    libs["contacts"].flingbot_contacts.argtypes = [p] * 11 + [i] * 4 + [p]
-    libs["contacts"].flingbot_contacts.restype = i
-    libs["contacts"].flingbot_contacts_mesh.argtypes = (
-        [p] * 14 + [i] * 4 + [p])
-    libs["contacts"].flingbot_contacts_mesh.restype = i
+    sub, con = libs["substeps"], libs["contacts"]
+    sub.flingbot_substeps.argtypes = [p] * 7 + [i] * 9 + [p]
+    sub.flingbot_substeps_max_clusters.argtypes = [i, p]
+    con.flingbot_contacts.argtypes = [p] * 14 + [i] * 8 + [p]
+    for fn in (sub.flingbot_substeps, sub.flingbot_substeps_max_clusters,
+               con.flingbot_contacts):
+        fn.restype = i
     for lib in libs.values():
         lib.flingbot_error_string.argtypes = [i]
         lib.flingbot_error_string.restype = ctypes.c_char_p
@@ -86,54 +97,94 @@ def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32):
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        msg = lib.flingbot_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
 def _launch(lib, fn, args, device):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
-    if err != 0:
-        msg = lib.flingbot_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} launch failed: {msg} ({err})")
+    _raise_on(lib, err, f"{fn.__name__} launch")
 
 
 # --------------------------------------------------------------------------
 # kernel 1: fused substeps
 # --------------------------------------------------------------------------
 
+def substeps_band(H: int, W: int):
+    """(band, smem bytes) of the substeps kernel on an H x W lattice split
+    over SUBSTEPS_CLUSTER CTAs: band = the most rows one CTA owns (an env
+    of dimy rows gives each CTA max(2, ceil(dimy / SUBSTEPS_CLUSTER)); at
+    least 2, the stencil's reach, so every halo row has one owner).  Each
+    CTA holds two ping-pong position buffers (3 planes each) over band + 4
+    rows (a 2-row halo above and below), the 6 per-class spring
+    coefficients over band + 2 rows (the constraint starts that its slots
+    read), and 6 words for each owned slot: its metadata, relaxation
+    factor, inverse mass and substep-start position."""
+    band = max(2, -(-H // SUBSTEPS_CLUSTER))
+    return band, 4 * W * (6 * (band + 4) + 6 * (band + 2) + 6 * band)
+
+
+@functools.lru_cache(maxsize=None)
+def substeps_max_clusters(device_index: int, smem: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the substeps kernel at this
+    shared memory per CTA: clusters the card runs at once."""
+    lib = build()["substeps"]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.flingbot_substeps_max_clusters(smem, ctypes.byref(out))
+    _raise_on(lib, err, "cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
 def substeps(pvec, P, V, w, *, n_sub: int, iterations: int,
-             picker_last: bool = True):
+             cheb: bool = True, picker_last: bool = True):
     """n_sub fused XPBD substeps per env (pallas_substeps,
     pallas_kernels.py:296-329).
 
     pvec (B, 21) f32; P, V (B, 3, H, W) f32; w (B, H, W) f32.  Returns
     (P', V', prev_last), prev_last the positions at the start of the last
-    substep.  picker_last=False omits the last substep's picker push so
+    substep.  cheb=False runs plain Jacobi iterations (spring_mode
+    "jacobi").  picker_last=False omits the last substep's picker push so
     the caller can run the contact group first."""
     if P.device.type == "cpu":
         return substeps_plain(pvec, P, V, w, n_sub=n_sub,
-                              iterations=iterations, picker_last=picker_last)
+                              iterations=iterations, cheb=cheb,
+                              picker_last=picker_last)
     B, _, H, W = P.shape
     _check(pvec, "pvec", (B, SUB_PARAM_LEN))
     _check(P, "P", (B, 3, H, W))
     _check(V, "V", (B, 3, H, W))
     _check(w, "w", (B, H, W))
-    if H * W > MAX_PARTICLES or 5 * H * W * 4 > _SMEM_LIMIT:
-        raise ValueError(f"lattice {H}x{W} exceeds the kernel's capacity")
+    band, smem = substeps_band(H, W)
+    # the slot metadata word keeps a band slot's index in 16 bits
+    if smem > _SMEM_LIMIT or (band + 4) * W >= 1 << 16:
+        raise ValueError(f"lattice {H}x{W} exceeds the kernel's capacity "
+                         f"at {SUBSTEPS_CLUSTER} CTAs per env")
+    dev = P.device.index if P.device.index is not None else \
+        torch.cuda.current_device()
+    if substeps_max_clusters(dev, smem) == 0:
+        raise RuntimeError(f"the card cannot run a cluster of "
+                           f"{SUBSTEPS_CLUSTER} CTAs with {smem} bytes of "
+                           f"shared memory each")
     lib = build()["substeps"]
     out_P = torch.empty_like(P)
     out_V = torch.empty_like(V)
     out_prev = torch.empty_like(P)
-    cheb = torch.empty_like(P)  # Chebyshev previous iterate (scratch)
     _launch(lib, lib.flingbot_substeps, [
         pvec.data_ptr(), P.data_ptr(), V.data_ptr(), w.data_ptr(),
-        out_P.data_ptr(), out_V.data_ptr(), out_prev.data_ptr(),
-        cheb.data_ptr(), B, H, W, int(n_sub), int(iterations),
-        int(bool(picker_last))], P.device)
+        out_P.data_ptr(), out_V.data_ptr(), out_prev.data_ptr(), B, H, W,
+        int(n_sub), int(iterations), int(bool(cheb)),
+        int(bool(picker_last)), band, smem], P.device)
     LAUNCHES["substeps"] += 1
     return out_P, out_V, out_prev
 
 
 def substeps_plain(pvec, P, V, w, *, n_sub: int, iterations: int,
-                   picker_last: bool = True):
+                   cheb: bool = True, picker_last: bool = True):
     """Plain PyTorch version of `substeps`, built from the solver
     functions (the substep loop of solver._substep/_run_substeps in the
     kernel's formulation)."""
@@ -151,11 +202,11 @@ def substeps_plain(pvec, P, V, w, *, n_sub: int, iterations: int,
     moving = valid & (w > 0)
     classes, invc = S.spring_coefficients(
         w, valid, dimx, dimy, pvec[:, 7:10], pvec[:, 6], pvec[:, 5])
-    rho2 = col(13)[:, None]
+    rho2 = col(13)[:, None] if cheb else None
     prev = P
     for s in range(n_sub):
         P, V, prev = S.integrate(P, V, dt, gravity_y, damping, moving)
-        P = S.chebyshev_loop(
+        P = S.spring_loop(
             P, lambda Q: S.grid_jacobi(Q, classes, invc), iterations,
             lambda Q: S.solve_plane(Q, prev, coldist, mu, moving), rho2)
         V = S.clamp_finalize(P, V, prev, dt, a_max, moving)
@@ -167,6 +218,22 @@ def substeps_plain(pvec, P, V, w, *, n_sub: int, iterations: int,
 # --------------------------------------------------------------------------
 # kernel 2: windowed contacts on Morton-sorted particles
 # --------------------------------------------------------------------------
+
+def contact_tiles(N: int, window: int, iterations: int):
+    """(tile, halo, n_tiles) of the contacts kernel.  After `iterations`
+    passes a particle depends only on the sorted slots within
+    halo = window * iterations of it, so each tile of tile = CONTACT_TILE
+    owned slots [s, e) runs every pass on [s - halo, e + halo) alone and
+    keeps [s, e)."""
+    return CONTACT_TILE, window * iterations, -(-N // CONTACT_TILE)
+
+
+def contact_smem(tile: int, halo: int) -> int:
+    """Shared memory bytes of one contacts tile: three float4 planes (two
+    ping-pong position buffers holding the packed ids, and the previous
+    positions with the mesh filter bits) over tile + 2 * halo slots."""
+    return 3 * 16 * (tile + 2 * halo)
+
 
 def contacts(cparams, xs, ys, zs, pxs, pys, pzs, packed, rests=None, *,
              window: int, iterations: int):
@@ -188,19 +255,21 @@ def contacts(cparams, xs, ys, zs, pxs, pys, pzs, packed, rests=None, *,
                         "rz"), coords):
         _check(a, name, (B, N))
     _check(packed, "packed", (B, N), torch.int32)
-    # shared memory: sorted x, y, z and packed ids, plus the mesh mode's
-    # per-particle filter bits
-    if N > MAX_PARTICLES or (5 if mesh else 4) * N * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{N} particles exceed the kernel's capacity")
     if mesh and window > MAX_MESH_WINDOW:
         raise ValueError(f"mesh mode supports window <= {MAX_MESH_WINDOW}")
+    tile, halo, n_tiles = contact_tiles(N, window, iterations)
+    smem = contact_smem(tile, halo)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"window {window} x {iterations} iterations: a "
+                         f"tile's halo exceeds shared memory")
     lib = build()["contacts"]
     ox, oy, oz = (torch.empty_like(xs) for _ in range(3))
-    fn = lib.flingbot_contacts_mesh if mesh else lib.flingbot_contacts
-    _launch(lib, fn, [cparams.data_ptr()] + [a.data_ptr() for a in coords[:6]]
-            + [packed.data_ptr()] + [a.data_ptr() for a in coords[6:]]
-            + [ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), B, N,
-               int(window), int(iterations)], xs.device)
+    rest_ptrs = [a.data_ptr() for a in coords[6:]] if mesh else [None] * 3
+    _launch(lib, lib.flingbot_contacts, [cparams.data_ptr()]
+            + [a.data_ptr() for a in coords[:6]] + [packed.data_ptr()]
+            + rest_ptrs + [ox.data_ptr(), oy.data_ptr(), oz.data_ptr(), B,
+                           N, int(window), int(iterations), tile, halo,
+                           n_tiles, smem], xs.device)
     LAUNCHES["contacts"] += 1
     if mesh:
         LAUNCHES["contacts_mesh"] += 1

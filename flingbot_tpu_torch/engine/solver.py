@@ -1,6 +1,6 @@
-"""XPBD cloth step (counterpart of flingbot_tpu/engine/solver.py at the
-production knobs: Chebyshev-accelerated Jacobi springs, sorted-window
-contacts), for grid cloths and layered-lattice shirts.
+"""XPBD cloth step (counterpart of flingbot_tpu/engine/solver.py on its
+pallas backend: Chebyshev-accelerated or plain Jacobi springs, sorted-window
+contacts or none), for grid cloths and layered-lattice shirts.
 
 Grid cloths: plain PyTorch functions on batched lattices, P (B, 3, H, W).
 The hot loop runs in the two CUDA kernels of engine/kernels.py; the
@@ -10,8 +10,9 @@ group is one `kernels.substeps` launch (integrate -> springs + plane
 iterations -> speed-up-only velocity clamp -> picker push, the last picker
 push deferred), then one contact group: contacts -> plane -> velocity add
 under the same clamp -> picker push (the pallas ordering of
-_step_grid_pallas, solver.py:571-660).  With drag or lift set, one launch
-per substep with the aero kick between launches (solver.py:617-644).
+_step_grid_pallas, solver.py:571-660).  Without self-collision, one
+launch of all substeps.  With drag or lift set, one launch per substep
+with the aero kick between launches (solver.py:617-644).
 
 Layered shirts: flat state P (B, 3, N) on the layered lattice; the spring
 solve gathers every offset class at once through a neighbour table, and
@@ -112,6 +113,19 @@ def chebyshev_loop(P, iterate_fn, iterations: int, plane_fn, rho2):
         omega = 4.0 / (4.0 - rho2 * omega)
         P_acc = omega * (iterate_fn(P) - P_prev) + P_prev
         P_prev, P = P, plane_fn(P_acc)
+    return P
+
+
+def spring_loop(P, iterate_fn, iterations: int, plane_fn, rho2=None):
+    """`iterations` spring passes, each followed by the ground plane:
+    Chebyshev-accelerated (chebyshev_loop) with rho2 given, else plain
+    Jacobi, P_{k+1} = plane(iterate(P_k)) (spring_mode "jacobi": the
+    fori_loop of _substep, solver.py:418-424, and of the substeps kernel,
+    pallas_kernels.py:229-233)."""
+    if rho2 is not None:
+        return chebyshev_loop(P, iterate_fn, iterations, plane_fn, rho2)
+    for _ in range(iterations):
+        P = plane_fn(iterate_fn(P))
     return P
 
 
@@ -251,21 +265,31 @@ def _aero_on(params: SolverParams) -> bool:
     return params.drag != 0.0 or params.lift != 0.0
 
 
+SPRING_MODES = ("chebyshev", "gs", "jacobi")
+
+
 def step(state: ClothState, topo, params: SolverParams, *,
          substeps: int = 4, iterations: int = 16, contact_every: int = 2,
-         contact_iterations: int = 4,
-         contact_window: int = 12) -> ClothState:
+         contact_iterations: int = 4, contact_window: int = 12,
+         spring_mode: str = "chebyshev",
+         self_collision: bool = True) -> ClothState:
     """Advance every env one frame: dt split into `substeps` substeps of
-    `iterations` Chebyshev iterations, self-collision every
-    `contact_every` substeps (solver.step(backend="pallas",
-    spring_mode="chebyshev", contact_mode="sort")).  Dispatches on the
-    topology as solver.py:529-550 does: grid cloths, layered shirts."""
-    if substeps % contact_every:
+    `iterations` spring iterations, self-collision every `contact_every`
+    substeps (solver.step(backend="pallas", contact_mode="sort")).
+    spring_mode "chebyshev" (or "gs", which the pallas backend maps to
+    it) accelerates the Jacobi iterations; "jacobi" runs them plain
+    (solver.py:593).  self_collision=False runs no contact group.
+    Dispatches on the topology as solver.py:529-550 does: grid cloths,
+    layered shirts."""
+    if spring_mode not in SPRING_MODES:
+        raise ValueError(f"unknown spring_mode {spring_mode!r}")
+    if self_collision and substeps % contact_every:
         raise ValueError("substeps must be divisible by contact_every")
     kw = dict(substeps=substeps, iterations=iterations,
               contact_every=contact_every,
               contact_iterations=contact_iterations,
-              contact_window=contact_window)
+              contact_window=contact_window,
+              cheb=spring_mode != "jacobi", self_collision=self_collision)
     if isinstance(topo, GridTopology):
         return _step_grid(state, topo, params, **kw)
     if isinstance(topo, LayeredGridTopology):
@@ -274,14 +298,16 @@ def step(state: ClothState, topo, params: SolverParams, *,
 
 
 def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
-               contact_iterations, contact_window):
+               contact_iterations, contact_window, cheb, self_collision):
     """The grid step of _step_grid_pallas (solver.py:562-660).  Without
     aero: one fused `kernels.substeps` launch per group of `contact_every`
     substeps, the group's last picker push deferred past its contact
-    group.  With drag or lift set (solver.py:617-644): one launch per
-    substep, the aero kick on the post-gravity velocity applied between
-    launches (the kernel integrates gravity and damping itself), and a
-    contact group after every `contact_every`-th substep."""
+    group; without self-collision, one launch of all substeps with its
+    last picker push (solver.py:646-657).  With drag or lift set
+    (solver.py:617-644): one launch per substep, the aero kick on the
+    post-gravity velocity applied between launches (the kernel integrates
+    gravity and damping itself), and a contact group after every
+    `contact_every`-th substep."""
     B, H, W = state.batch, topo.max_dimy, topo.max_dimx
     P = state.positions.view(B, 3, H, W)
     V = state.velocities.view(B, 3, H, W)
@@ -317,18 +343,22 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
             kick = aero.aero_accel(V + g_dt, aero.grid_normals(P, valid),
                                    params, moving)
             V = V + dt_sub * kick
-            contact_now = (s + 1) % contact_every == 0
+            contact_now = self_collision and (s + 1) % contact_every == 0
             P, V, prevL = kernels.substeps(
                 pvec, P.contiguous(), V.contiguous(), w, n_sub=1,
-                iterations=iterations, picker_last=not contact_now)
+                iterations=iterations, cheb=cheb,
+                picker_last=not contact_now)
             if contact_now:
                 P, V = contacts(P, V, prevL)
     else:
-        for _ in range(substeps // contact_every):
+        n_sub = contact_every if self_collision else substeps
+        for _ in range(substeps // n_sub):
             P, V, prevL = kernels.substeps(
-                pvec, P.contiguous(), V.contiguous(), w, n_sub=contact_every,
-                iterations=iterations, picker_last=False)
-            P, V = contacts(P, V, prevL)
+                pvec, P.contiguous(), V.contiguous(), w, n_sub=n_sub,
+                iterations=iterations, cheb=cheb,
+                picker_last=not self_collision)
+            if self_collision:
+                P, V = contacts(P, V, prevL)
     return state.replace(positions=P.reshape(B, 3, -1),
                          velocities=V.reshape(B, 3, -1))
 
@@ -399,14 +429,15 @@ def finalize_velocity(P, V, prev, dt, dv_max, moving):
 
 
 def _step_layered(state, topo, params, *, substeps, iterations,
-                  contact_every, contact_iterations, contact_window):
+                  contact_every, contact_iterations, contact_window, cheb,
+                  self_collision):
     """Layered-lattice shirt step (_step_layered + _run_substeps +
     _substep, solver.py:395-487,751-806) on flat (B, 3, N) state.  Each
-    substep: integrate -> Chebyshev springs + plane -> velocity finalize
-    -> (every `contact_every`-th substep) contact group in mesh mode ->
-    plane -> velocity add under the clamp; then the picker push, after
-    every substep (position only: picker_friction = 0, as in
-    production)."""
+    substep: integrate -> springs + plane (Chebyshev, or plain Jacobi
+    without cheb) -> velocity finalize -> (with self-collision, every
+    `contact_every`-th substep) contact group in mesh mode -> plane ->
+    velocity add under the clamp; then the picker push, after every
+    substep (position only: picker_friction = 0, as in production)."""
     if _aero_on(params):
         # layered aero needs the mesh normals' scatter-add (aero.py:43-69),
         # which the port does not have yet
@@ -429,7 +460,8 @@ def _step_layered(state, topo, params, *, substeps, iterations,
     damp = float(max(f(0.0), f(1.0) - f(params.damping) * dt))
     g_dt = dt * torch.tensor(params.gravity, dtype=torch.float32,
                              device=P.device).view(1, 3, 1)
-    rho2 = f(params.chebyshev_rho) * f(params.chebyshev_rho)
+    rho2 = f(params.chebyshev_rho) * f(params.chebyshev_rho) if cheb \
+        else None
     R = float(f(PICKER_RADIUS) + f(params.collision_distance))
     planes = layered_spring_planes(w, topo)
     dt_t = _per_dt(dt, P)
@@ -438,13 +470,13 @@ def _step_layered(state, topo, params, *, substeps, iterations,
         V = torch.where(mm, (V + g_dt) * damp, 0.0)
         prev = P
         P = torch.where(mm, P + float(dt) * V, P)
-        P = chebyshev_loop(
+        P = spring_loop(
             P, lambda Q: solve_springs_layered(Q, w, planes, relax),
             iterations,
             lambda Q: solve_plane(Q, prev, params.collision_distance,
                                   params.dynamic_friction, moving), rho2)
         V = finalize_velocity(P, V, prev, dt_t, float(dv_max), moving)
-        if (i + 1) % contact_every == 0:
+        if self_collision and (i + 1) % contact_every == 0:
             P2 = collisions.contact_group(
                 P, prev, w, state.active, params, rest_dist=params.radius,
                 rest_positions=topo.rest_positions, window=contact_window,

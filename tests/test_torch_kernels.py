@@ -4,26 +4,38 @@ contacts kernel in grid and in mesh mode).
 On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
 the Pallas kernels in interpret mode, as tests/test_pallas.py does.  The
 CUDA kernels themselves are compared with the plain versions on the card
-(`cuda`-marked test here, and chip_smoke.py)."""
+(`cuda`-marked tests here, and chip_smoke.py).  A card's machine may lack
+the JAX package's dependencies (flax, h5py): there run only
+`pytest -m cuda`, whose tests need neither."""
 
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from flingbot_tpu.engine import solver as jsolver
-from flingbot_tpu.engine.collisions import (
-    _contacts_sorted_flat, contact_group as jax_contact_group)
-from flingbot_tpu.engine.pallas_kernels import (
-    pack_sub_params as jax_pack, pallas_contacts, pallas_substeps)
-from flingbot_tpu.engine.state import SolverParams as JParams
-from flingbot_tpu.engine.topology import build_grid_topology as jax_topology
-from flingbot_tpu.engine.topology import grid_positions
 from flingbot_tpu_torch.engine import collisions, kernels
-from flingbot_tpu_torch.engine.solver import pack_sub_params
+from flingbot_tpu_torch.engine.solver import pack_sub_params, step
 from flingbot_tpu_torch.engine.state import SolverParams
-from flingbot_tpu_torch.engine.topology import build_grid_topology
-import tests.test_torch_common  # noqa: F401  (CPU platform, 2 threads)
+from flingbot_tpu_torch.engine.topology import (
+    build_grid_topology, grid_positions)
+
+try:  # the JAX package, for the tests against it
+    import jax.numpy as jnp
+
+    from flingbot_tpu.engine import solver as jsolver
+    from flingbot_tpu.engine.collisions import (
+        _contacts_sorted_flat, contact_group as jax_contact_group)
+    from flingbot_tpu.engine.pallas_kernels import (
+        pack_sub_params as jax_pack, pallas_contacts, pallas_substeps)
+    from flingbot_tpu.engine.state import SolverParams as JParams
+    from flingbot_tpu.engine.topology import (
+        build_grid_topology as jax_topology)
+    import tests.test_torch_common  # noqa: F401  (CPU platform, 2 threads)
+except ImportError:
+    jnp = None
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DIM = 16
 FAR = [[-10.0] * 3] * 2
@@ -33,7 +45,7 @@ def _lattice(seed=0):
     rng = np.random.default_rng(seed)
     pos = grid_positions(DIM, DIM, lower=(0.0, 0.1, 0.0)).reshape(DIM, DIM, 3)
     pos += rng.normal(0, 1e-3, pos.shape)
-    P = np.moveaxis(pos, -1, 0).astype(np.float32)
+    P = np.ascontiguousarray(np.moveaxis(pos, -1, 0), np.float32)
     V = rng.normal(0, 1e-2, (3, DIM, DIM)).astype(np.float32)
     w = np.full((DIM, DIM), DIM * DIM / 0.5, np.float32)
     return P, V, w
@@ -220,6 +232,101 @@ def test_mesh_contact_group_matches_and_passes_through():
                                  rest_positions=topo.rest_positions)
 
 
+def _tail_inputs(n=1500, inactive=600, seed=2):
+    """A clumped cloud of n slots (not a multiple of the contact tile)
+    whose last `inactive` slots are not cloth, Morton-sorted in grid
+    mode: the cparams and the 7 sorted arrays."""
+    rng = np.random.default_rng(seed)
+    P = rng.normal(0, 0.02, (1, 3, n)).astype(np.float32)
+    prev = P + rng.normal(0, 1e-3, P.shape).astype(np.float32)
+    w = np.full((1, n), 100.0, np.float32)
+    w[0, [3, 50, 700]] = 0.0
+    active = np.arange(n)[None] < n - inactive
+    params = SolverParams()
+    _, srt = collisions.sort_particles(
+        *(torch.tensor(a) for a in (P, prev, w, active)),
+        rest_dist=params.radius, lattice_w=64)
+    return collisions.contact_params(params, params.radius, 1, "cpu"), srt
+
+
+def _tiled_plain(cp, srt, rests, window, iterations):
+    """contacts_plain run tile by tile on the slices [s - halo, e + halo)
+    of kernels.contact_tiles, the owned ranges [s, e) stitched."""
+    N = srt[0].shape[1]
+    tile, halo, n_tiles = kernels.contact_tiles(N, window, iterations)
+    out = [torch.empty_like(srt[0]) for _ in range(3)]
+    skipped = 0
+    for ti in range(n_tiles):
+        s, e = ti * tile, min(N, (ti + 1) * tile)
+        lo, hi = max(0, s - halo), min(N, e + halo)
+        cut = lambda arrs: [a[:, lo:hi].contiguous() for a in arrs]  # noqa
+        o = kernels.contacts_plain(cp, *cut(srt),
+                                   cut(rests) if rests else None,
+                                   window=window, iterations=iterations)
+        for c in range(3):
+            out[c][:, s:e] = o[c][:, s - lo:e - lo]
+        if (srt[6][0, s] >> kernels.PACK_INACTIVE_BIT) & 1:
+            # the kernel copies such a tile through: so does the plain one
+            skipped += 1
+            for c in range(3):
+                assert torch.equal(out[c][:, s:e], srt[c][:, s:e])
+    return out, n_tiles, skipped
+
+
+@pytest.mark.parametrize("mode,window,iterations", [
+    ("grid", 12, 4),  # the production knobs: halo 48
+    ("grid", 16, 8),  # the flex-parity knobs: halo 128
+    ("mesh", 12, 4),  # a crumpled eval shirt: 5376 slots, 11 tiles
+])
+def test_contact_tiles_stitch_to_the_whole(mode, window, iterations):
+    """The contacts kernel's halo tiling: contacts_plain run tile by tile
+    on the slices the wrapper's geometry cuts, owned ranges stitched,
+    equals contacts_plain on the whole sorted array exactly, an N that is
+    not a multiple of the tile and an inactive tail included."""
+    if mode == "grid":
+        cp, srt = _tail_inputs()
+        rests = None
+    else:
+        _, _, arrs = _shirt_contact_inputs()
+        cp = collisions.contact_params(SolverParams(), SolverParams().radius,
+                                       1, "cpu")
+        srt, rests = arrs[:7], arrs[7:]
+    kw = dict(window=window, iterations=iterations)
+    whole = kernels.contacts_plain(cp, *srt, rests, **kw)
+    tiled, n_tiles, skipped = _tiled_plain(cp, srt, rests, **kw)
+    N = srt[0].shape[1]
+    assert n_tiles >= 3 and N % kernels.CONTACT_TILE != 0 and skipped >= 1
+    for a, b in zip(tiled, whole):
+        assert torch.equal(a, b)
+    assert max(float((o - s).abs().max()) for o, s in zip(whole, srt)) > 1e-4
+
+
+def _obj_shirt_contact_inputs():
+    """Two shirts of data/shirts/shirt_00_processed.obj pressed to 40% of
+    their width with a 1 cm wrinkle, one layered frame on, Morton-sorted
+    in mesh mode (no HDF5 reader needed): the cparams, the 7 sorted
+    arrays and the 3 sorted rest coordinates."""
+    from flingbot_tpu_torch.env.scene import make_batch, shirt_task
+
+    path = os.path.join(ROOT, "data", "shirts", "shirt_00_processed.obj")
+    topo, state = make_batch([shirt_task(path)] * 2, device="cpu")
+    P = state.positions.clone()
+    P[:, 0] *= 0.4
+    P[:, 2] *= 0.4
+    P[:, 1] += 0.01 * torch.sin(P[:, 0] * 150.0) + 0.02
+    state = state.replace(positions=torch.where(state.active[:, None], P,
+                                                state.positions))
+    params = SolverParams()
+    moved = step(state, topo, params, substeps=2, iterations=4,
+                 contact_every=2, contact_iterations=2, contact_window=12)
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    _, srt = collisions.sort_particles(
+        moved.positions, state.positions, w, state.active,
+        rest_dist=params.radius, rest_positions=topo.rest_positions)
+    cp = collisions.contact_params(params, params.radius, 2, "cpu")
+    return cp, srt[:7], srt[7:]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -259,19 +366,67 @@ def test_cuda_kernels_match_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_mesh_contacts_match_plain(cuda_device):
-    """The mesh mode of csrc/contacts.cu against its plain version on a
-    crumpled eval shirt (5376 slots): the contacts tolerance, in effect
-    bit-equality under -fmad=false."""
-    _, _, srt = _shirt_contact_inputs()
-    srt = [a.to(cuda_device) for a in srt]
-    cp = collisions.contact_params(SolverParams(), SolverParams().radius, 1,
-                                   cuda_device)
+    """The mesh mode of csrc/contacts.cu against its plain version on two
+    pressed OBJ shirts (6144 slots on the 96x64 lattice): the contacts
+    tolerance, in effect bit-equality under -fmad=false."""
+    cp, srt, rests = _obj_shirt_contact_inputs()
+    cp, srt, rests = (cp.to(cuda_device), [a.to(cuda_device) for a in srt],
+                      [a.to(cuda_device) for a in rests])
     before = dict(kernels.LAUNCHES)
-    ok = kernels.contacts(cp, *srt[:7], rests=srt[7:], window=12,
-                          iterations=4)
-    op = kernels.contacts_plain(cp, *srt[:7], rests=srt[7:], window=12,
+    ok = kernels.contacts(cp, *srt, rests=rests, window=12, iterations=4)
+    op = kernels.contacts_plain(cp, *srt, rests=rests, window=12,
                                 iterations=4)
     assert kernels.LAUNCHES["contacts_mesh"] == before["contacts_mesh"] + 1
     assert kernels.LAUNCHES["contacts"] == before["contacts"] + 1
+    for a, b in zip(ok, op):
+        assert float((a - b).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(n_sub=2, picker_last=False),  # the fused launch
+    dict(n_sub=1, picker_last=False),  # the aero launch
+    dict(n_sub=4, cheb=False, picker_last=True),  # jacobi, no contacts
+    dict(n_sub=4, picker_last=True),  # no self-collision
+])
+def test_cuda_substeps_configurations(cuda_device, kw):
+    """Each launch configuration of csrc/substeps.cu against its plain
+    version on three envs whose dims (16x16, 12x14, 7x5) give full,
+    partial and empty bands (5 rows over 8 CTAs: 2, 2, 1, 0, ...):
+    the substeps tolerances, in effect bit-equality under -fmad=false."""
+    P, V, w = _lattice()
+    topo = build_grid_topology([16, 12, 7], [16, 14, 5], max_dimx=DIM,
+                               max_dimy=DIM, device=cuda_device)
+    picker = torch.tensor([[[0.04, 0.1, 0.04], [-10.0] * 3]] * 3,
+                          device=cuda_device)
+    pvec = pack_sub_params(SolverParams(), topo, picker, 0.02, 0.0025)
+    args = [torch.tensor(np.stack([a] * 3), device=cuda_device)
+            for a in (P, V, w)]
+    kw = dict(kw, iterations=16)
+    out_k = kernels.substeps(pvec, *args, **kw)
+    out_p = kernels.substeps_plain(pvec, *args, **kw)
+    for a, b, tol in zip(out_k, out_p, (1e-5, 4e-3, 1e-5)):
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,window,iterations", [
+    ("grid", 12, 4), ("grid", 16, 8), ("mesh", 12, 4)])
+def test_cuda_contact_tiles_match_plain(cuda_device, mode, window,
+                                        iterations):
+    """The halo-tiled contacts kernel against contacts_plain at one or two
+    envs (a few blocks: most SMs idle), with an N that is not a multiple
+    of the tile and an inactive tail: the contacts tolerance."""
+    if mode == "grid":
+        cp, srt = _tail_inputs()
+        rests = None
+    else:
+        cp, srt, rests = _obj_shirt_contact_inputs()
+    to = lambda arrs: [a.to(cuda_device) for a in arrs]  # noqa: E731
+    cp, srt = cp.to(cuda_device), to(srt)
+    rests = to(rests) if rests else None
+    kw = dict(window=window, iterations=iterations)
+    ok = kernels.contacts(cp, *srt, rests, **kw)
+    op = kernels.contacts_plain(cp, *srt, rests, **kw)
     for a, b in zip(ok, op):
         assert float((a - b).abs().max()) <= 2e-6
