@@ -29,15 +29,23 @@ Phases, each printed on its own line with its wall seconds:
      against the plain path on the CPU
   5  torch.profiler over 16 interpreter steps of the main path: time per
      step, device time by kernel, the device's busy share
-  6  the shirt path: BatchSimEnv of 16 crumpled layered shirts (4 seeded
-     crumples of each data/shirts/*.obj) at production knobs: reset ->
+  6  the shirt path: BatchSimEnv of the 16 layered shirts of the shirt
+     eval set (data_r3/shirt_eval_16.npz, through TaskLoader and
+     detect_topology_buckets) at production knobs: reset ->
      batch_value_maps -> step, launch counters zeroed before and read
-     after; plus one frame of 4 shirts on the card against the CPU, and
-     phase 5's profile of 16 interpreter steps
+     after; plus one frame of 4 of those shirts and one of 4 crumpled
+     data/shirts/*.obj shirts on the card against the CPU, and phase 5's
+     profile of 16 interpreter steps
   7  the aero path: phase 4's start states with drag and lift set (an
      option of the solver; flingbot scenes run none): one frame of 4 envs
      on the card against the CPU, then reset -> batch_value_maps -> step
      through the one-substep launches
+  8  the eval path: one frame of 4 of the hard eval set's tasks
+     (data_r3/rect_eval_hard_100.npz) on the card against the CPU; then
+     episodes of 2 steps on that set in 16 env slots under heuristic
+     value maps, reloading finished slots, until 32 episodes are done;
+     launch counters zeroed before and read after; the replay record's
+     statistics printed as eval_quality's JSON line
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -86,7 +94,10 @@ FRAME_TOL = 1e-4
 # against NOISE_FACTOR times what NOISE relative noise on its input
 # positions moves the CPU frame by
 NOISE, NOISE_FACTOR = 1e-7, 2.0
-SHIRT_COPIES = 4  # seeded crumples of each data/shirts/*.obj
+SHIRT_COPIES = 4  # copies of each data/shirts/*.obj
+SHIRT_TASKS = "data_r3/shirt_eval_16.npz"  # exported task sets
+RECT_TASKS = "data_r3/rect_eval_hard_100.npz"
+EVAL_ENVS, EVAL_LENGTH, EVAL_EPISODES = 16, 2, 32
 AERO = dict(drag=8.0, lift=4.0, wind=(0.5, 0.0, -0.25))
 SMOKE_ENVS = 128
 BENCH_ENVS, BENCH_DIM, BENCH_STEPS = 512, 100, 10
@@ -583,15 +594,17 @@ def phase_slice(device):
     torch.cuda.synchronize()
     log(f"  crumpled {SMOKE_ENVS} cloths in {time.perf_counter() - t0:.2f} s")
     frame_check(state, topo, params, "grid")
-    launches, env, vm = drive_path(state, topo, device, ("substeps",
-                                                        "contacts"))
+    launches, env, vm = drive_path((state, topo), device, ("substeps",
+                                                          "contacts"))
     return launches, (env, vm), (state, topo)
 
 
-def drive_path(state, topo, device, kernels_of_path, params=None):
+def drive_path(start, device, kernels_of_path, params=None, **env_kw):
     """reset -> batch_value_maps -> step of a BatchSimEnv at production
-    knobs, launch counters zeroed just before and read just after; fails
-    if a kernel of the path never launched."""
+    knobs, from start = (state, topo), or from file tasks when start is
+    () and env_kw holds the task source; launch counters zeroed just
+    before and read just after; fails if a kernel of the path never
+    launched."""
     import torch
 
     from flingbot_tpu_torch.engine import kernels
@@ -599,9 +612,8 @@ def drive_path(state, topo, device, kernels_of_path, params=None):
     from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
 
     env = BatchSimEnv(device=device, scale_factors=SCALES,
-                      solver_params=params, **SOLVER)
+                      solver_params=params, **SOLVER, **env_kw)
     policy = MaximumValuePolicy(["fling"], 64, seed=0, device=device)
-    B = state.batch
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t = [time.perf_counter()]
@@ -611,7 +623,7 @@ def drive_path(state, topo, device, kernels_of_path, params=None):
         t.append(time.perf_counter())
         return t[-1] - t[-2]
 
-    obs = env.reset(state, topo)
+    obs = env.reset(*start)
     s_reset = lap()
     vm = policy.batch_value_maps(obs)
     s_policy = lap()
@@ -620,6 +632,7 @@ def drive_path(state, topo, device, kernels_of_path, params=None):
     launches = dict(kernels.LAUNCHES)
 
     last = env.last
+    B = env.state.batch
     T = 12 * len(SCALES)
     assert tuple(obs.shape) == (B, T, 4, 64, 64), obs.shape
     assert tuple(vm.shape) == (B, 1, T, 64, 64), vm.shape
@@ -650,25 +663,124 @@ def drive_path(state, topo, device, kernels_of_path, params=None):
 
 
 def phase_shirts(device):
-    """The shirt path: 16 crumpled layered shirts through the fling, then
-    a profile of 16 interpreter steps."""
+    """The shirt path: the 16 shirts of the shirt eval set, read through
+    TaskLoader and detect_topology_buckets, through the fling; then a
+    profile of 16 interpreter steps."""
     import torch
 
     from flingbot_tpu_torch.engine.state import SolverParams
     from flingbot_tpu_torch.env.scene import crumple
+    from flingbot_tpu_torch.env.tasks import (
+        TaskLoader, detect_topology_buckets)
 
+    path = os.path.join(ROOT, SHIRT_TASKS)
+    buckets = detect_topology_buckets(path)
+    spec = buckets["layered_spec"]
+    if spec is None:
+        raise AssertionError(f"{SHIRT_TASKS} holds no layered shirts")
+    loader = TaskLoader(path)
+    log(f"  {len(loader)} shirt tasks on a {spec.H}x{spec.W} lattice, "
+        f"{len(spec.offsets)} spring classes")
+    env_kw = dict(get_task_fn=loader.get_next_task, num_envs=len(loader),
+                  **buckets)
+    launches, env, vm = drive_path((), device, ("contacts_mesh",),
+                                   **env_kw)
     params = SolverParams()
-    t0 = time.perf_counter()
+    # one frame of 4 of these shirts from their file states on the card
+    # against the CPU: dense contacts in the crumpled file states make
+    # that frame ill-conditioned (a last-place difference flips a contact:
+    # 1.356e-4 m on an H100 against a CPU spread of 9.521e-5 m), so it is
+    # held against NOISE_FACTOR x the CPU spread
+    loader.curr_task_idx = 0
+    topo, state = env.load_scenes(
+        [loader.get_next_task() for _ in range(4)])
+    frame_check(state, topo, params, "eval-set shirts",
+                ill_conditioned=True)
+    # and, as before, one frame of crumpled OBJ shirts at FRAME_TOL
     topo, state = shirt_batch(device)
     state = crumple(state, topo, params, torch.Generator().manual_seed(0),
                     SOLVER)
-    torch.cuda.synchronize()
-    log(f"  crumpled {state.batch} shirts on a {topo.H}x{topo.W} lattice in "
-        f"{time.perf_counter() - t0:.2f} s")
-    frame_check(state, topo, params, "shirts")
-    launches, env, vm = drive_path(state, topo, device, ("contacts_mesh",))
+    frame_check(state, topo, params, "crumpled OBJ shirts")
     phase_profile(env, vm)
     return launches
+
+
+def phase_eval(device):
+    """The eval path: one settle frame of 4 file tasks on the card against
+    the CPU; then episodes of EVAL_LENGTH steps on the hard eval set
+    through heuristic value maps, EVAL_ENVS slots reloaded as their
+    episodes end, until EVAL_EPISODES episodes are done; launch counters
+    zeroed before and read after; then the replay record's statistics
+    (collect_stats), and every episode's recorded init coverage against
+    its task in the file."""
+    import tempfile
+
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.scene import make_batch, scene_task
+    from flingbot_tpu_torch.env.tasks import (
+        TaskLoader, detect_topology_buckets, read_task_arrays)
+    from flingbot_tpu_torch.eval_quality import (
+        heuristic_value_maps, json_line)
+    from flingbot_tpu_torch.learning.memory import read_step, step_keys
+    from flingbot_tpu_torch.utils.stats import collect_stats
+
+    path = os.path.join(ROOT, RECT_TASKS)
+    loader = TaskLoader(path)
+    # the settle frame of 4 file tasks on the card against the CPU: dense
+    # contacts in crumpled file states make it ill-conditioned, as in
+    # phase 6
+    topo, state = make_batch([scene_task(loader.get_next_task())
+                              for _ in range(4)], device=device)
+    frame_check(state, topo, SolverParams(), "hard eval-set tasks",
+                ill_conditioned=True)
+    loader.curr_task_idx = 0
+    with tempfile.TemporaryDirectory(suffix="_replay") as replay:
+        env = BatchSimEnv(
+            get_task_fn=loader.get_next_task, num_envs=EVAL_ENVS,
+            replay_buffer_path=replay, episode_length=EVAL_LENGTH,
+            **detect_topology_buckets(path), render_dim=256,
+            chunk_steps=192, scale_factors=SCALES, device=device, **SOLVER)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        obs = env.reset()
+        steps = reloads = 0
+        while env.episodes_done < EVAL_EPISODES:
+            done = env.episodes_done
+            obs = env.step(heuristic_value_maps(obs))
+            steps += 1
+            reloads += env.episodes_done > done
+            if not bool(torch.isfinite(obs).all()):
+                raise AssertionError("non-finite observation")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        stats = collect_stats(replay, num_points=10 ** 9) or {}
+        tasks = read_task_arrays(path)
+        for key in step_keys(replay):
+            if key.endswith("_last"):
+                a, _ = read_step(replay, key, arrays=False)
+                want = float(tasks[a["task_name"]]["@initial_coverage"])
+                if a["init_coverage"] != want:
+                    raise AssertionError(f"{key}: init coverage "
+                                         f"{a['init_coverage']} != {want}")
+    log(f"  {env.episodes_done} episodes ({env.episodes_terminated} ended "
+        f"early) in {steps} steps of {EVAL_ENVS} envs, {reloads} reload "
+        f"rounds, {seconds:.2f} s; launches {launches}")
+    log("  eval stats: " + json.dumps(json_line(stats, env.episodes_done,
+                                                 seconds)))
+    if reloads < 1:
+        raise AssertionError("no reload round")
+    for name in ("substeps", "contacts"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched on the "
+                                 "eval path")
+    if "best_coverage/hard/mean" not in stats:
+        raise AssertionError("the replay record has no best coverage")
 
 
 def phase_aero(state, topo, device):
@@ -686,7 +798,8 @@ def phase_aero(state, topo, device):
     log(f"  the aero pass changed V by up to {kick:.3e} m/s in that frame")
     if not kick > 1e-3:
         raise AssertionError("the aero pass changed nothing")
-    launches, _, _ = drive_path(state, topo, device, ("substeps",), params)
+    launches, _, _ = drive_path((state, topo), device, ("substeps",),
+                                params)
     return launches
 
 
@@ -762,6 +875,8 @@ def main():
     with Phase("7 aero path"):
         launches["substeps_aero"] = phase_aero(state, topo,
                                                device)["substeps"]
+    with Phase("8 eval path"):
+        phase_eval(device)
     launches["substeps_jacobi"] = jacobi_launches
 
     sources = {

@@ -101,6 +101,13 @@ class ClothState:
         return ClothState(**{k: v.to(device)
                              for k, v in self.fields().items()})
 
+    def set_slots(self, idx: torch.Tensor,
+                  other: "ClothState") -> "ClothState":
+        """This batch with env slots `idx` (K,) set from the K-env batch
+        `other` (the JAX env's `b.at[idx].set(x)`, batch_env.py:672-677)."""
+        return ClothState(**{k: v.index_copy(0, idx, getattr(other, k))
+                             for k, v in self.fields().items()})
+
 
 def where_state(mask: torch.Tensor, a: ClothState,
                 b: ClothState) -> ClothState:

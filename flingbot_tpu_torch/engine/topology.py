@@ -67,6 +67,22 @@ class GridTopology:
             self, dimx=self.dimx.to(device), dimy=self.dimy.to(device),
             stiffness=self.stiffness.to(device))
 
+    def set_slots(self, idx: torch.Tensor,
+                  other: "GridTopology") -> "GridTopology":
+        """This batch with env slots `idx` (K,) set from the K-env batch
+        `other`, which shares the lattice."""
+        if (other.max_dimx, other.max_dimy) != (self.max_dimx,
+                                                 self.max_dimy):
+            raise ValueError("grid topologies of one batch must share "
+                             "their lattice")
+        dimx = self.dimx.index_copy(0, idx, other.dimx)
+        dimy = self.dimy.index_copy(0, idx, other.dimy)
+        full = bool(((dimx == self.max_dimx)
+                     & (dimy == self.max_dimy)).all())
+        return dataclasses.replace(
+            self, dimx=dimx, dimy=dimy, full_grid=full,
+            stiffness=self.stiffness.index_copy(0, idx, other.stiffness))
+
 
 def grid_positions(dimx: int, dimy: int, lower=(0.0, 0.0, 0.0),
                    spacing: float = PARTICLE_RADIUS) -> np.ndarray:
@@ -413,6 +429,17 @@ class LayeredGridTopology:
     def to(self, device) -> "LayeredGridTopology":
         return dataclasses.replace(
             self, **{k: v.to(device) for k, v in self._tensors().items()})
+
+    def set_slots(self, idx: torch.Tensor,
+                  other: "LayeredGridTopology") -> "LayeredGridTopology":
+        """This batch with env slots `idx` (K,) set from the K-env batch
+        `other`, built under the same spec."""
+        if other.spec != self.spec:
+            raise ValueError("layered topologies of one batch must share "
+                             "their LayeredSpec")
+        return dataclasses.replace(self, **{
+            k: v.index_copy(0, idx, other._tensors()[k])
+            for k, v in self._tensors().items()})
 
     @staticmethod
     def cat(topos) -> "LayeredGridTopology":

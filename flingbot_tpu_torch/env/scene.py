@@ -1,7 +1,8 @@
 """Scene construction: task arrays -> batched (topology, ClothState)
 (counterpart of flingbot_tpu/env/scene.py: grid cloths, and shirts on one
-shared layered lattice), and a seeded lift-and-drop crumple that makes
-start states without task files.
+shared layered lattice) from task files (`scene_task`) or from arrays, and
+a seeded lift-and-drop crumple that makes start states without task
+files.
 """
 
 from __future__ import annotations
@@ -78,6 +79,20 @@ def shirt_task(path: str, **kw) -> ShirtTask:
     inv = np.full((n, 1), n / task.cloth_mass, np.float32)
     task.particle_pos = np.concatenate([pos, inv], 1).reshape(-1)
     return task
+
+
+def scene_task(task):
+    """A task read from a task file (env.tasks.Task) -> the scene's Task
+    (grid cloth) or ShirtTask (mesh), with its saved state: what the JAX
+    _load_scene passes to set_scene as get_config() / get_state()
+    (batch_env.py:336-345)."""
+    common = dict(particle_pos=task.particle_pos,
+                  particle_vel=task.particle_vel, cloth_mass=task.cloth_mass,
+                  cloth_stiff=task.cloth_stiff, cloth_pos=task.cloth_pos)
+    if np.size(task.mesh_verts) > 0:
+        return ShirtTask(**{k: getattr(task, k) for k in MESH_KEYS},
+                         **common)
+    return Task(cloth_size=tuple(int(v) for v in task.cloth_size), **common)
 
 
 def _to_lattice(x: np.ndarray, dimx: int, dimy: int, H: int, W: int,

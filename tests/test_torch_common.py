@@ -81,3 +81,27 @@ def canonical(x, topo, base):
     """Port lattice (B, C, H*W) -> canonical (B, N, C) numpy."""
     base = t(np.swapaxes(np.asarray(base), 1, 2))
     return scatter_from_lattice(x, base, topo).transpose(1, 2).numpy()
+
+
+def write_grid_tasks(path, dims, rng, difficulty="hard", height=0.02):
+    """A flingbot-format HDF5 task file of small grid cloths lying near
+    flat (the JAX package's write_task schema), seeded."""
+    from flingbot_tpu.env.tasks import write_task
+
+    for dimx, dimy in dims:
+        n = dimx * dimy
+        pos = cloth_positions(dimx, dimy, rng, height=height)
+        pp = np.concatenate([pos, np.full((n, 1), n / 0.5, np.float32)], 1)
+        write_task(path, dict(
+            particle_pos=pp.reshape(-1),
+            particle_vel=(rng.normal(0, 1e-3, n * 3)).astype(np.float32),
+            initial_coverage=float(rng.uniform(0.2, 0.5)) * n * 0.00625 ** 2,
+            shape_pos=np.zeros(28, np.float32),
+            phase=np.zeros(n, np.int32), flatten_area=n * 0.00625 ** 2,
+            flip_mesh=0, cloth_size=np.array([dimx, dimy]),
+            cloth_stiff=np.asarray(STIFF, np.float64),
+            cloth_mass=float(rng.uniform(0.3, 0.8)),
+            task_difficulty=difficulty, mesh_verts=np.array([]),
+            mesh_stretch_edges=np.array([]), mesh_bend_edges=np.array([]),
+            mesh_shear_edges=np.array([]), mesh_faces=np.array([])))
+    return path
