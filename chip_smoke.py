@@ -19,9 +19,11 @@ Phases, each printed on its own line with its wall seconds:
      no-self-collision launch and contacts at window 16 / 8 iterations
      checked too; plus one aero frame of 4 of the grid kernels' compressed
      synthetic cloths on the card against the plain path on the CPU
-  3  physics frame at bench.py's operating point: 512 envs of 100x100,
-     4 substeps x 16 Chebyshev iterations, contacts 4/12/every 2 -> rate;
-     then one frame with spring_mode "jacobi" and no self-collision
+  3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
+     operating point: 512 envs of 100x100, 4 substeps x 16 Chebyshev
+     iterations, contacts 4/12/every 2 -> the rate of 5 windows of 20
+     frames and their median; then one frame with spring_mode "jacobi"
+     and no self-collision
   4  the main path: BatchSimEnv of 128 crumpled cloths (64-104) at
      production knobs (render 400, obs 64, 96 views, 16x8 value net,
      seeded init): reset -> batch_value_maps -> step, launch counters
@@ -43,9 +45,20 @@ Phases, each printed on its own line with its wall seconds:
   8  the eval path: one frame of 4 of the hard eval set's tasks
      (data_r3/rect_eval_hard_100.npz) on the card against the CPU; then
      episodes of 2 steps on that set in 16 env slots under heuristic
-     value maps, reloading finished slots, until 32 episodes are done;
+     value maps, reloading finished slots, until 16 episodes are done;
      launch counters zeroed before and read after; the replay record's
      statistics printed as eval_quality's JSON line
+  9  the train path: flingbot_tpu_torch.run_sim from the round-4
+     checkpoint exported from the JAX package (runs/round4/latest_ckpt.npz;
+     16 channels, 8 blocks, obs 64, 96 transforms) on the hard eval set,
+     64 envs, episodes of 2 steps, batch 128, 2 batches per update, D4
+     augmentation, render 256: 4 rounds, of which at least 2 optimize;
+     launch counters zeroed before and read after the phase; the saved
+     checkpoint reloaded into a fresh policy gives bit-equal value maps;
+     then one --eval round from it.  Prints each round's act / step /
+     optimize seconds, ms per train step at batch 128 and a profile of 3
+     of them, s per dataset batch, and value-map inference ms at 64 envs
+     x 96 transforms with and without test-time averaging
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -97,10 +110,12 @@ NOISE, NOISE_FACTOR = 1e-7, 2.0
 SHIRT_COPIES = 4  # copies of each data/shirts/*.obj
 SHIRT_TASKS = "data_r3/shirt_eval_16.npz"  # exported task sets
 RECT_TASKS = "data_r3/rect_eval_hard_100.npz"
-EVAL_ENVS, EVAL_LENGTH, EVAL_EPISODES = 16, 2, 32
+EVAL_ENVS, EVAL_LENGTH, EVAL_EPISODES = 16, 2, 16
+ROUND4_CKPT = "runs/round4/latest_ckpt.npz"
+TRAIN_ENVS, TRAIN_ROUNDS, TRAIN_BATCH = 64, 4, 128
 AERO = dict(drag=8.0, lift=4.0, wind=(0.5, 0.0, -0.25))
 SMOKE_ENVS = 128
-BENCH_ENVS, BENCH_DIM, BENCH_STEPS = 512, 100, 10
+BENCH_ENVS, BENCH_DIM, BENCH_STEPS, BENCH_WINDOWS = 512, 100, 20, 5
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
               contact_iterations=4, contact_window=12)
 SCALES = (1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75)
@@ -522,48 +537,39 @@ def frame_check(state, topo, params, what, ill_conditioned=False):
 
 
 def phase_bench(device):
-    import numpy as np
+    """flingbot_tpu_torch.bench at its operating point (512 envs of
+    100x100): each window's rate and their median; then one frame with
+    spring_mode "jacobi" and no self-collision from the bench's last
+    state."""
+    import statistics
+
     import torch
 
+    from flingbot_tpu_torch import bench
     from flingbot_tpu_torch.engine import kernels
     from flingbot_tpu_torch.engine.solver import step
     from flingbot_tpu_torch.engine.state import SolverParams
-    from flingbot_tpu_torch.engine.topology import build_grid_topology
-    from flingbot_tpu_torch.engine.topology import grid_positions
-    from flingbot_tpu_torch.env.scene import Task, make_batch
 
     d = BENCH_DIM
-    pos = grid_positions(d, d, lower=(0.0, 0.005, 0.0))
-    pos[:, [0, 2]] -= pos[:, [0, 2]].mean(0)
-    n = d * d
-    pp = np.concatenate([pos, np.full((n, 1), n / 0.5, np.float32)], 1)
-    task = Task(cloth_size=(d, d), particle_pos=pp.reshape(-1))
-    _, state = make_batch([task] * BENCH_ENVS, max_grid_dim=d, device=device)
-    topo = build_grid_topology([d] * BENCH_ENVS, [d] * BENCH_ENVS,
-                               max_dimx=d, max_dimy=d, device=device)
-    params = SolverParams()
     kernels.reset_launch_counts()
-    holder = [step(state, topo, params, **SOLVER)]
-    torch.cuda.synchronize()
-
-    def run():
-        holder[0] = step(holder[0], topo, params, **SOLVER)
-
-    ms = cuda_ms(run, BENCH_STEPS, warmup=0)
-    assert torch.isfinite(holder[0].positions).all()
-    rate = BENCH_ENVS / (ms / 1e3)
-    log(f"  {BENCH_ENVS} envs x {d}x{d}: {ms:.3f} ms per frame -> "
-        f"{rate:.1f} env-steps/s; launches {dict(kernels.LAUNCHES)} over "
-        f"{BENCH_STEPS + 1} frames")
+    rates, state, topo = bench.measure(BENCH_ENVS, d, BENCH_STEPS,
+                                       BENCH_WINDOWS, device=device)
+    assert torch.isfinite(state.positions).all()
+    rate = statistics.median(rates)
+    log(f"  {BENCH_ENVS} envs x {d}x{d}, windows of {BENCH_STEPS} frames: "
+        f"{', '.join(f'{r:.1f}' for r in rates)} env-steps/s, median "
+        f"{rate:.1f}; launches {dict(kernels.LAUNCHES)} over "
+        f"{BENCH_STEPS * BENCH_WINDOWS + 1} frames")
+    params = SolverParams()
     # spring_mode "jacobi" without self-collision: one launch of all 4
     # plain-Jacobi substeps per frame (a warm-up frame, then the counted
     # and timed one)
     jkw = dict(SOLVER, spring_mode="jacobi", self_collision=False)
-    step(holder[0], topo, params, **jkw)
+    step(state, topo, params, **jkw)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = step(holder[0], topo, params, **jkw)
+    out = step(state, topo, params, **jkw)
     torch.cuda.synchronize()
     ms_j = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.LAUNCHES)
@@ -783,6 +789,120 @@ def phase_eval(device):
         raise AssertionError("the replay record has no best coverage")
 
 
+def phase_train(device):
+    """The train path through run_sim.main: TRAIN_ROUNDS rounds from the
+    round-4 checkpoint on the hard eval set, then the checkpoint it saved
+    reloaded and one --eval round from it; launch counters zeroed before
+    and read after.  Returns the launches."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from flingbot_tpu_torch import run_sim
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.learning.dataset import GraspDataset
+    from flingbot_tpu_torch.learning.memory import step_keys
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+    from flingbot_tpu_torch.learning.train import train_on_batch
+    from flingbot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt0 = os.path.join(ROOT, ROUND4_CKPT)
+    start = MaximumValuePolicy(["fling"], 64, device=device)
+    load_checkpoint(ckpt0, start)
+    common = ["--tasks", os.path.join(ROOT, RECT_TASKS), "--num_envs",
+              str(TRAIN_ENVS), "--render_dim", "256", "--chunk_steps", "192",
+              "--lr", "1e-3", "--seed", "0", "--device", str(device)]
+    with tempfile.TemporaryDirectory(suffix="_train") as tmp:
+        log_dir = os.path.join(tmp, "train")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        policy, history = run_sim.main(common + [
+            "--log", log_dir, "--load", ckpt0, "--episode_length", "2",
+            "--warmup", "0", "--batch_size", str(TRAIN_BATCH),
+            "--batches_per_update", "2", "--dihedral_augment"],
+            max_rounds=TRAIN_ROUNDS)
+        seconds = time.perf_counter() - t0
+        for r in history:
+            opt = ("-" if r["optimize"] is None
+                   else f"{r['optimize']:.3f} s")
+            log(f"  round {r['round']}: act {r['act']:.3f} s, step "
+                f"{r['step']:.3f} s, optimize {opt}; replay "
+                f"{r['dataset_size']} steps; losses {r['losses']}")
+        trained = sum(r["optimize"] is not None for r in history)
+        losses = [v for r in history for v in r["losses"].values()]
+        log(f"  {len(history)} rounds in {seconds:.2f} s, {trained} "
+            f"optimized; steps {start.steps()} -> {policy.steps()}")
+        if len(history) != TRAIN_ROUNDS or trained < 2:
+            raise AssertionError(f"{trained} of {len(history)} rounds "
+                                 "optimized")
+        if policy.steps() - start.steps() < 4:
+            raise AssertionError("the policy took fewer than 4 steps")
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+
+        # the saved checkpoint reloads bit for bit
+        ckpt = os.path.join(log_dir, "latest_ckpt.pth")
+        fresh = MaximumValuePolicy(["fling"], 64, device=device)
+        load_checkpoint(ckpt, fresh)
+        gen = torch.Generator(device).manual_seed(0)
+        obs = torch.rand((TRAIN_ENVS, 96, 4, 64, 64), generator=gen,
+                         device=device)
+        obs[:, :, 3] = 1.99 + 0.01 * obs[:, :, 3]
+        if not torch.equal(policy.batch_value_maps(obs),
+                           fresh.batch_value_maps(obs)):
+            raise AssertionError("the reloaded checkpoint's value maps "
+                                 "differ")
+        log(f"  {ckpt} reloaded: value maps bit-equal at {TRAIN_ENVS} "
+            "envs x 96 transforms")
+
+        # layer times: a dataset batch, a train step, value-map inference
+        ds = GraspDataset(os.path.join(log_dir, "replay_buffer"),
+                          rgb_only=True, dihedral_augment=True)
+        t0 = time.perf_counter()
+        batch = ds.sample_batch(TRAIN_BATCH)
+        s_batch = time.perf_counter() - t0
+        ms = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_on_batch(fresh.nets["fling"], *batch)
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        profile_steps(lambda: [train_on_batch(fresh.nets["fling"], *batch)
+                               for _ in range(3)], 3,
+                      f"3 train steps at batch {TRAIN_BATCH}")
+        ms_vm = cuda_ms(lambda: policy.batch_value_maps(obs), 3)
+        policy.tta = True
+        ms_tta = cuda_ms(lambda: policy.batch_value_maps(obs), 2)
+        log(f"  dataset batch of {TRAIN_BATCH}: {s_batch:.3f} s; train "
+            f"step at batch {TRAIN_BATCH}: median {statistics.median(ms):.3f}"
+            f" ms (min {min(ms):.3f}, max {max(ms):.3f}, 20 steps); value "
+            f"maps at {TRAIN_ENVS} envs x 96 transforms: {ms_vm:.3f} ms, "
+            f"with TTA {ms_tta:.3f} ms")
+
+        # one --eval round from the saved checkpoint
+        t0 = time.perf_counter()
+        run_sim.main(common + ["--log", log_dir, "--eval", "--load", ckpt,
+                               "--episode_length", "1"], max_rounds=1)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        replay = os.path.join(log_dir, "latest_ckpt_eval_0", "replay_buffer")
+        n_eval = len(step_keys(replay))
+        log(f"  eval round: {n_eval} episodes in {replay} in "
+            f"{time.perf_counter() - t0:.2f} s; launches in the phase "
+            f"{launches}")
+        if n_eval != TRAIN_ENVS:
+            raise AssertionError(f"the eval round wrote {n_eval} episodes")
+    for name in ("substeps", "contacts"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched on the "
+                                 "train path")
+    return launches
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
     and wind set, through the one-substep launches; first one frame of 4
@@ -805,11 +925,8 @@ def phase_aero(state, topo, device):
 
 def phase_profile(env, vm, steps: int = 16):
     """torch.profiler over `steps` interpreter steps of a fresh fling
-    program on the main path's envs: wall time per step, device time by
-    kernel and the device's busy share."""
+    program on the main path's envs."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flingbot_tpu_torch.env.primitives import (
         STABLE_MAX_STEPS, program_chunk)
@@ -822,11 +939,23 @@ def phase_profile(env, vm, steps: int = 16):
     carry, _ = program_chunk(carry, env.topo, env.params, prog,
                              chunk_steps=2, **kw)
     torch.cuda.synchronize()
+    profile_steps(lambda: program_chunk(carry, env.topo, env.params, prog,
+                                        chunk_steps=steps, **kw),
+                  steps, f"{steps} interpreter steps at B={env.state.batch}")
+
+
+def profile_steps(fn, steps: int, what: str):
+    """torch.profiler over fn(), which runs `steps` steps: wall and device
+    time per step, the port's kernels' share of it, the device's busy
+    share, and the device kernels that take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        program_chunk(carry, env.topo, env.params, prog,
-                      chunk_steps=steps, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: an aten op's own entry repeats the time of
@@ -838,8 +967,7 @@ def phase_profile(env, vm, steps: int = 16):
     total = sum(dev(e) for e in events) / 1e3  # ms
     ours = sum(dev(e) for e in events
                if "substeps_kernel" in e.key or "contacts_kernel" in e.key)
-    log(f"  {steps} interpreter steps at B={env.state.batch}: wall "
-        f"{wall * 1e3 / steps:.3f} ms per step, device "
+    log(f"  {what}: wall {wall * 1e3 / steps:.3f} ms per step, device "
         f"{total / steps:.3f} ms per step (the port's kernels "
         f"{ours / 1e3 / steps:.3f}), device busy share "
         f"{total / (wall * 1e3):.3f}, {len(events)} device kernel kinds")
@@ -877,6 +1005,10 @@ def main():
                                                device)["substeps"]
     with Phase("8 eval path"):
         phase_eval(device)
+    with Phase("9 train path"):
+        train = phase_train(device)
+    for name in ("substeps", "contacts"):
+        launches[name] += train[name]
     launches["substeps_jacobi"] = jacobi_launches
 
     sources = {

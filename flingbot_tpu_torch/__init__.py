@@ -1,9 +1,11 @@
 """flingbot_tpu_torch: the PyTorch/CUDA port of flingbot_tpu.
 
 The package mirrors the layout of `flingbot_tpu` (engine/, env/, render/,
-learning/) and runs the eval main path of `run_sim.py` on an NVIDIA Hopper
-card: `BatchSimEnv.reset` -> `MaximumValuePolicy.batch_value_maps` ->
-`BatchSimEnv.step`.  The two Pallas kernels of the JAX package are CUDA
+learning/, utils/) and runs `run_sim.py`'s loop on an NVIDIA Hopper card:
+`BatchSimEnv.reset` -> `MaximumValuePolicy.batch_value_maps` ->
+`BatchSimEnv.step`, then training of the value net on the replay record
+(`python -m flingbot_tpu_torch.run_sim`; `eval_quality` and `bench` are
+the other entry points).  The two Pallas kernels of the JAX package are CUDA
 kernels here (`csrc/substeps.cu`, `csrc/contacts.cu`), built with `nvcc`
 at first use and bound with `ctypes` (engine/kernels.py).
 

@@ -63,8 +63,9 @@ class StepInfo(NamedTuple):
 class BatchSimEnv:
     """Fling envs in lockstep.  Observation and primitive settings are the
     production defaults of run_sim.py (grasp radius 1, adaptive scaling,
-    reach 1.2 m, grasp height 0.02, fling speed 6e-3, surface-sampled
-    render); the solver knobs default to the production operating point.
+    reach 1.2 m, grasp height 0.02, surface-sampled render); the fling
+    speed and height and the solver knobs default to the production
+    operating point.
 
     get_task_fn: returns the next env.tasks.Task (TaskLoader.get_next_task)
     for reset() and reloads; layered_spec: the shared lattice of a shirt
@@ -85,6 +86,7 @@ class BatchSimEnv:
                  contact_window: int = 12, spring_mode: str = "chebyshev",
                  self_collision: bool = True,
                  domain_randomization: bool = True,
+                 fling_speed: float = 6e-3, fixed_fling_height: float = -1.0,
                  chunk_steps: int = 64, max_program_steps: int = 4000,
                  solver_params: SolverParams | None = None, seed: int = 0,
                  device="cuda"):
@@ -118,7 +120,9 @@ class BatchSimEnv:
             contact_iterations=contact_iterations,
             contact_window=contact_window, spring_mode=spring_mode,
             self_collision=self_collision)
-        self.prim_cfg = PrimitiveConfig(max_program_steps=max_program_steps)
+        self.prim_cfg = PrimitiveConfig(
+            fling_speed=fling_speed, fixed_fling_height=fixed_fling_height,
+            max_program_steps=max_program_steps)
         # solver_params: SolverParams with overrides (the JAX env's
         # solver_overrides); drag or lift set turns the aero pass on
         self.params = solver_params or SolverParams()

@@ -7,7 +7,10 @@
 
 --tasks takes a task file exported by tools/export_tasks_npz.py.  Policies:
 'heuristic' (value peaks at cloth pixels far from the cloth centroid: grasp
-the far edge) and 'random' value maps.  Runs on the card; --device cpu
+the far edge), 'random' value maps, and 'ckpt', the value net of --load (a
+checkpoint of the port, or a JAX checkpoint exported to .npz by
+tools/export_ckpt_npz.py; --tta averages its value maps over the 8
+dihedral transforms of each view).  Runs on the card; --device cpu
 runs the plain PyTorch path on the CPU.  The last line of the output is
 the JSON line of the root eval_quality.py: episodes, seconds and the
 coverage statistics of the replay record.
@@ -104,30 +107,28 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.policy == "ckpt":
-        raise NotImplementedError(
-            "--policy ckpt: the port cannot load a checkpoint yet (the "
-            "converter of the JAX package's .pth checkpoints is ROADMAP "
-            "Queue 1 item 3)")
-    if args.tta:
-        raise NotImplementedError(
-            "--tta: value_map_inference_tta is not ported yet (ROADMAP "
-            "Queue 1 item 4)")
+    if args.policy == "ckpt" and args.load is None:
+        raise ValueError("--policy ckpt needs --load: a checkpoint")
+    if args.tta and args.policy != "ckpt":
+        raise ValueError("--tta averages the value net's maps: it needs "
+                         "--policy ckpt")
 
     from flingbot_tpu_torch.device import resolve_device
-    from flingbot_tpu_torch.engine.state import SolverParams
     from flingbot_tpu_torch.env.batch_env import BatchSimEnv
     from flingbot_tpu_torch.env.tasks import (
         TaskLoader, detect_topology_buckets)
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+    from flingbot_tpu_torch.utils.checkpoint import load_checkpoint
+    from flingbot_tpu_torch.utils.config import solver_params
     from flingbot_tpu_torch.utils.stats import collect_stats
 
     device = resolve_device(args.device)
-    params = SolverParams()
-    if args.solver_overrides:
-        over = json.loads(args.solver_overrides)
-        params = params.replace(**{
-            k: tuple(v) if isinstance(v, list) else float(np.float32(v))
-            for k, v in over.items()})
+    params = solver_params(args.solver_overrides)
+    policy = None
+    if args.policy == "ckpt":
+        policy = MaximumValuePolicy(["fling"], 64, tta=args.tta,
+                                    device=device)
+        load_checkpoint(args.load, policy)
     loader = TaskLoader(args.tasks, repeat=True)
     with tempfile.TemporaryDirectory(suffix="_replay") as replay:
         env = BatchSimEnv(
@@ -152,10 +153,12 @@ def main(argv=None):
         while env.episodes_done < target:
             if args.policy == "heuristic":
                 vm = heuristic_value_maps(obs)
-            else:  # the root eval_quality.py's draws
+            elif args.policy == "random":  # the root eval_quality's draws
                 vm = torch.from_numpy(rng.uniform(
                     size=(obs.shape[0], 1, obs.shape[1], 64, 64)
                 ).astype(np.float32))
+            else:
+                vm = policy.batch_value_maps(obs)
             obs = env.step(vm)
             print(f"[eval] episodes {env.episodes_done}/{target} "
                   f"({time.time() - t0:.0f}s)", flush=True)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import os
 import random
 from copy import deepcopy
-from typing import Dict, List, Tuple
+from typing import Collection, Dict, List, Tuple
 
 import numpy as np
 
@@ -43,10 +43,11 @@ def step_keys(replay_dir: str) -> List[str]:
                   if f.endswith(STEP_SUFFIX))
 
 
-def read_step(replay_dir: str, key: str,
-              arrays: bool = True) -> Tuple[Dict, Dict[str, np.ndarray]]:
+def read_step(replay_dir: str, key: str, arrays: bool | Collection[str]
+              = True) -> Tuple[Dict, Dict[str, np.ndarray]]:
     """(attributes, arrays) of one step; arrays=False reads the attributes
-    only.  Attributes come back as numpy scalars, strings as str."""
+    only, a collection of names only those arrays.  Attributes come back
+    as numpy scalars, strings as str."""
     attrs, data = {}, {}
     with np.load(os.path.join(replay_dir, key + STEP_SUFFIX),
                  allow_pickle=False) as z:
@@ -55,7 +56,7 @@ def read_step(replay_dir: str, key: str,
                 v = z[name][()]
                 attrs[name[len(ATTR_PREFIX):]] = (
                     str(v) if isinstance(v, np.str_) else v)
-            elif arrays:
+            elif arrays is True or (arrays and name in arrays):
                 data[name] = z[name]
     return attrs, data
 

@@ -1,7 +1,8 @@
 """The port's eval entry point, python -m flingbot_tpu_torch.eval_quality:
 its heuristic value maps against the numpy original of the root
 eval_quality.py, a CPU run of the command on a tiny task file, the
-unported options raising, and (on a card) file tasks settled on the card
+checkpoint and test-time-averaging options refusing a missing companion
+option, and (on a card) file tasks settled on the card
 against the CPU plain path.
 
 The card test needs neither jax nor h5py (a card's machine may have
@@ -84,7 +85,10 @@ def test_eval_quality_cli_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag,match", [
     (["--policy", "ckpt"], "checkpoint"), (["--tta"], "tta")])
 def test_unported_options_raise(flag, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Both options are ported; each raises when its companion is
+    missing: a checkpoint policy without --load, test-time averaging
+    without a value net."""
+    with pytest.raises(ValueError, match=match):
         main(["--tasks", HARD, "--device", "cpu"] + flag)
 
 
