@@ -52,13 +52,24 @@ Phases, each printed on its own line with its wall seconds:
      checkpoint exported from the JAX package (runs/round4/latest_ckpt.npz;
      16 channels, 8 blocks, obs 64, 96 transforms) on the hard eval set,
      64 envs, episodes of 2 steps, batch 128, 2 batches per update, D4
-     augmentation, render 256: 4 rounds, of which at least 2 optimize;
+     augmentation, render 256: 3 rounds, of which at least 2 optimize;
      launch counters zeroed before and read after the phase; the saved
      checkpoint reloaded into a fresh policy gives bit-equal value maps;
      then one --eval round from it.  Prints each round's act / step /
      optimize seconds, ms per train step at batch 128 and a profile of 3
      of them, s per dataset batch, and value-map inference ms at 64 envs
      x 96 transforms with and without test-time averaging
+ 10  the action-space path: 32 tasks of the hard eval set at production
+     knobs through one BatchSimEnv.step with all four primitives (fling,
+     stretchdrag, drag, place), seeded value maps steering env i to
+     primitive i mod 4, launch counters zeroed before and read after;
+     the same step replayed from its start, one interpreter step at a
+     time, to see which envs' pickers held cloth (the last 16 steps
+     profiled); then 2 rounds of run_sim.main with --action_primitives
+     place drag and non-default observation knobs (grasp radius 2, no
+     adaptive scaling, reach 1.0 m), counters zeroed before and read
+     after.  Fails if a primitive is never selected or never grasps, if
+     substeps or contacts never launch, or if a net is left untrained
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -112,8 +123,14 @@ SHIRT_TASKS = "data_r3/shirt_eval_16.npz"  # exported task sets
 RECT_TASKS = "data_r3/rect_eval_hard_100.npz"
 EVAL_ENVS, EVAL_LENGTH, EVAL_EPISODES = 16, 2, 16
 ROUND4_CKPT = "runs/round4/latest_ckpt.npz"
-TRAIN_ENVS, TRAIN_ROUNDS, TRAIN_BATCH = 64, 4, 128
+# 3 rounds (4 before phase 10 was added: the script keeps its time)
+TRAIN_ENVS, TRAIN_ROUNDS, TRAIN_BATCH = 64, 3, 128
 AERO = dict(drag=8.0, lift=4.0, wind=(0.5, 0.0, -0.25))
+ACTION_PRIMS = ("fling", "stretchdrag", "drag", "place")
+# the replay's interpreter steps: drag and place grasp ~210 steps in,
+# after their arm's 0.73 m to the pre-grasp point and 0.28 m down at
+# 5e-3 m a step
+ACTION_ENVS, ACTION_REPLAY_STEPS = 32, 320
 SMOKE_ENVS = 128
 BENCH_ENVS, BENCH_DIM, BENCH_STEPS, BENCH_WINDOWS = 512, 100, 20, 5
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
@@ -903,6 +920,139 @@ def phase_train(device):
     return launches
 
 
+def phase_action_space(device):
+    """The action-space path: one BatchSimEnv.step of ACTION_ENVS hard
+    tasks with all four primitives, env i steered to primitive i mod 4;
+    a replay of that step from its start state tracking which pickers
+    held cloth; then 2 run_sim rounds training a place and a drag net
+    with non-default observation knobs.  Returns the launches of both
+    parts."""
+    import tempfile
+
+    import torch
+
+    from flingbot_tpu_torch import run_sim
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.primitives import (
+        STABLE_MAX_STEPS, program_chunk)
+    from flingbot_tpu_torch.env.sim_env import step_begin
+    from flingbot_tpu_torch.env.tasks import (
+        TaskLoader, detect_topology_buckets)
+
+    path = os.path.join(ROOT, RECT_TASKS)
+    B, P = ACTION_ENVS, len(ACTION_PRIMS)
+    env = BatchSimEnv(
+        get_task_fn=TaskLoader(path).get_next_task, num_envs=B,
+        action_primitives=ACTION_PRIMS, **detect_topology_buckets(path),
+        render_dim=256, chunk_steps=192, scale_factors=SCALES,
+        device=device, **SOLVER)
+    obs = env.reset()
+    gen = torch.Generator(device).manual_seed(0)
+    vm = torch.rand((B, P, obs.shape[1], 64, 64), generator=gen,
+                    device=device)
+    ar = torch.arange(B, device=device)
+    vm[ar, ar % P] += 10.0
+    start = (env.state, env.topo, env.obs)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    env.step(vm)
+    torch.cuda.synchronize()
+    s_step = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    last = env.last
+    prim = last.selection.prim_idx.cpu()
+    steps = last.sim_steps.cpu()
+    term = last.terminate.cpu()
+    for name, x in (("obs", env.obs.obs_stack),
+                    ("positions", env.state.positions),
+                    ("post coverage", last.post_coverage)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"non-finite {name}")
+    log(f"  one step of {B} envs, {P} primitives: {s_step:.2f} s "
+        f"({last.chunks} chunks of {env.chunk_steps}); launches {launches}")
+
+    # the same step from its start, one interpreter step at a time: which
+    # envs' pickers held a particle (kernels are deterministic, so the
+    # replay selects and runs the same programs); its last 16 steps
+    # profiled
+    state, topo, obs0 = start
+    sel, _, _, carry, prog = step_begin(
+        state, vm, obs0, env.rotations, env.prim_cfg, env.pix_grasp_dist,
+        env.action_primitives, env.pix_drag_dist, env.pix_place_dist)
+    if not torch.equal(sel.prim_idx.cpu(), prim):
+        raise AssertionError("the replay selected other primitives")
+    kw = dict(chunk_steps=1, sim_kw=env.sim_kw,
+              max_steps=env.prim_cfg.max_program_steps + STABLE_MAX_STEPS)
+    held = torch.zeros(B, dtype=torch.bool, device=device)
+
+    def replay(n):
+        nonlocal carry, held
+        for _ in range(n):
+            carry, _ = program_chunk(carry, topo, env.params, prog, **kw)
+            held |= (carry.state.picked_idx >= 0).any(1)
+
+    replay(ACTION_REPLAY_STEPS - 16)
+    torch.cuda.synchronize()
+    profile_steps(lambda: replay(16), 16,
+                  f"16 interpreter steps of {P} primitives at B={B}")
+    held = held.cpu()
+    for p, name in enumerate(ACTION_PRIMS):
+        mine = prim == p
+        if not mine.any():
+            raise AssertionError(f"{name} was never selected")
+        s = steps[mine].float()
+        log(f"  {name}: {int(mine.sum())} envs, {int(held[mine].sum())} "
+            f"held cloth within {ACTION_REPLAY_STEPS} steps, "
+            f"{int(term[mine].sum())} terminated; program sim steps mean "
+            f"{s.mean():.1f} min {s.min():.0f} max {s.max():.0f}")
+        if not held[mine].any():
+            raise AssertionError(f"{name} never grasped the cloth")
+    for name in ("substeps", "contacts"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched on the "
+                                 "action-space path")
+
+    # 2 training rounds of a place and a drag net; uniform value maps
+    # (value exploration 1) pick each env's primitive at random
+    with tempfile.TemporaryDirectory(suffix="_train") as tmp:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        policy, history = run_sim.main([
+            "--tasks", path, "--num_envs", str(B), "--render_dim", "256",
+            "--chunk_steps", "192", "--seed", "0", "--device", str(device),
+            "--log", os.path.join(tmp, "train"), "--episode_length", "1",
+            "--warmup", "0", "--batch_size", "8", "--value_expl_prob", "1",
+            "--value_expl_decay", "1", "--action_primitives", "place",
+            "drag", "--conservative_grasp_radius", "2",
+            "--no-use_adaptive_scaling", "--reach_distance_limit", "1.0"],
+            max_rounds=2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trained = dict(kernels.LAUNCHES)
+    for r in history:
+        log(f"  round {r['round']}: act {r['act']:.3f} s, step "
+            f"{r['step']:.3f} s, optimize {r['optimize']}; replay "
+            f"{r['dataset_size']} steps; losses {r['losses']}")
+    steps_by_net = {k: ns.steps for k, ns in policy.nets.items()}
+    log(f"  2 rounds in {seconds:.2f} s; train steps {steps_by_net}; "
+        f"launches {trained}")
+    for name, n in steps_by_net.items():
+        if n < 1:
+            raise AssertionError(f"the {name} net was left untrained")
+    losses = [v for r in history for v in r["losses"].values()]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    for name in ("substeps", "contacts"):
+        if trained[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in the "
+                                 "place / drag training rounds")
+        launches[name] += trained[name]
+    return launches
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
     and wind set, through the one-substep launches; first one frame of 4
@@ -1007,8 +1157,10 @@ def main():
         phase_eval(device)
     with Phase("9 train path"):
         train = phase_train(device)
+    with Phase("10 action-space path"):
+        action = phase_action_space(device)
     for name in ("substeps", "contacts"):
-        launches[name] += train[name]
+        launches[name] += train[name] + action[name]
     launches["substeps_jacobi"] = jacobi_launches
 
     sources = {

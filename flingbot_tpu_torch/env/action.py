@@ -1,17 +1,25 @@
 """Dense action selection: masked argmax over the spatial action space
-(counterpart of flingbot_tpu/env/action.py; fling geometry).
+of one or several primitives (counterpart of flingbot_tpu/env/action.py).
 
-Validity (in bounds after the inverse transform, dual-arm reach, grasp
-circle on cloth) is action-independent, so every mask is computed up front
-and one masked argmax, first index on ties, picks the action
-(get_max_value_valid_action, simEnv.py:560-661).  When nothing is valid
-the unmasked argmax is taken and the primitive no-ops through its grasp
-flags.
+Validity (in bounds after the inverse transform, arm reach, grasp circle
+on cloth) is action-independent, so every mask is computed up front and
+one masked argmax over (P, T, D, D), first index on ties, picks the
+primitive and the action (get_max_value_valid_action, simEnv.py:560-661).
+When nothing is valid the unmasked argmax is taken and the primitive
+no-ops through its grasp flags.
+
+Grasp-point geometry per primitive (get_action_params, simEnv.py:517-537):
+  fling, stretchdrag: p1 / p2 = the selected pixel +- pix_grasp_dist rows;
+                      the left arm reaches p1, the right arm p2, and at
+                      least one grasp circle lands on cloth
+  drag:               p2 = p1 + pix_drag_dist rows
+  place:              p2 = p1 + pix_place_dist rows; for both, one arm
+                      reaches p1 and p2, and p1's grasp circle is on cloth
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -39,15 +47,41 @@ class ActionSelection(NamedTuple):
     pretransform_pixels: torch.Tensor  # (B, 2, 2) source (row, col)
 
 
+def _pair_offsets(primitives: Sequence[str], pix_grasp_dist, pix_drag_dist,
+                  pix_place_dist):
+    """Per primitive: row offsets of p1 and p2 from the selected pixel and
+    the pairing (0: left arm -> p1, right arm -> p2; 1: one arm reaches
+    both) (_pair_offsets, action.py:56-80)."""
+    o1, o2, pairing = [], [], []
+    for p in primitives:
+        if p in ("fling", "stretchdrag"):
+            o1.append(pix_grasp_dist)
+            o2.append(-pix_grasp_dist)
+            pairing.append(0)
+        elif p == "drag":
+            o1.append(0)
+            o2.append(pix_drag_dist)
+            pairing.append(1)
+        elif p == "place":
+            o1.append(0)
+            o2.append(pix_place_dist)
+            pairing.append(1)
+        else:
+            raise ValueError(p)
+    return tuple(o1), tuple(o2), tuple(pairing)
+
+
 def select_action(value_maps: torch.Tensor, obs: Observation,
                   rotations: torch.Tensor,
-                  pix_grasp_dist: int = 8) -> ActionSelection:
-    """value_maps (B, P, T, D, D) -> per-env selection (select_action,
-    action.py:83).  Fling: p1/p2 = the selected pixel +- pix_grasp_dist
-    rows; the left arm reaches p1 and the right arm p2; at least one grasp
-    circle must land on cloth."""
+                  primitives: Sequence[str] = ("fling",),
+                  pix_grasp_dist: int = 8, pix_drag_dist: int = 10,
+                  pix_place_dist: int = 10) -> ActionSelection:
+    """value_maps (B, P, T, D, D), P = len(primitives) -> per-env
+    selection (select_action, action.py:83)."""
     B, P, T, D, _ = value_maps.shape
     dev = value_maps.device
+    o1s, o2s, pairings = _pair_offsets(primitives, pix_grasp_dist,
+                                       pix_drag_dist, pix_place_dist)
     g = pix_grasp_dist
     reach_l = obs.mask_stack[:, :, 1] > 0.5
     reach_r = obs.mask_stack[:, :, 2] > 0.5
@@ -61,10 +95,18 @@ def select_action(value_maps: torch.Tensor, obs: Observation,
     def shifted(m, dy):
         return shift2d(m, dy, 0, fill=False)
 
-    mask = (shifted(inb, g) & shifted(inb, -g)
-            & shifted(reach_l, g) & shifted(reach_r, -g)
-            & (shifted(grasp_w, g) | shifted(grasp_w, -g)) & crop2d)
-    valid = mask[:, None].expand(B, P, T, D, D)
+    masks = []
+    for o1, o2, pairing in zip(o1s, o2s, pairings):
+        if pairing == 0:
+            reach_ok = shifted(reach_l, o1) & shifted(reach_r, o2)
+            grasp_ok = shifted(grasp_w, o1) | shifted(grasp_w, o2)
+        else:
+            reach_ok = ((shifted(reach_l, o1) & shifted(reach_l, o2))
+                        | (shifted(reach_r, o1) & shifted(reach_r, o2)))
+            grasp_ok = shifted(grasp_w, o1)
+        masks.append(shifted(inb, o1) & shifted(inb, o2) & reach_ok
+                     & grasp_ok & crop2d)
+    valid = torch.stack(masks, 1)  # (B, P, T, D, D)
 
     flat_vm = value_maps.reshape(B, -1)
     masked = torch.where(valid.reshape(B, -1), flat_vm, NEG_INF)
@@ -85,8 +127,11 @@ def select_action(value_maps: torch.Tensor, obs: Observation,
     rotation = rotations.to(dev)[t // n_scales]
     scale = obs.adaptive_scales.gather(1, (t % n_scales)[:, None])[:, 0]
 
-    px_t = torch.stack([torch.stack([row + g, col], -1),
-                        torch.stack([row - g, col], -1)], 1).to(torch.float32)
+    off1 = torch.tensor(o1s, device=dev)[prim_idx]
+    off2 = torch.tensor(o2s, device=dev)[prim_idx]
+    px_t = torch.stack([torch.stack([row + off1, col], -1),
+                        torch.stack([row + off2, col], -1)],
+                       1).to(torch.float32)
     S = obs.depth.shape[1]
     src_px = transform_pixels_to_source(px_t, rotation[:, None],
                                         scale[:, None], S, D)  # (B, 2, 2)

@@ -8,10 +8,11 @@ flingbot_tpu/env/batch_env.py, eval path).
     vm = policy.batch_value_maps(obs)   # (B, P, T, D, D)
     obs = env.step(vm)                  # env.last: per-env coverage etc.
 
-Each step selects one fling per env, runs the fling program (ending in the
-postaction STABILIZE) through the batched interpreter in host-driven
-chunks, scores coverage before and after, and renders the next
-observation.  With a task source, every env slot runs episodes: each step
+Each step selects one action per env among the action primitives (fling,
+stretchdrag, drag, place; one value map each), runs each env's program
+(ending in the postaction STABILIZE) through the batched interpreter in
+host-driven chunks, scores coverage before and after, and renders the
+next observation.  With a task source, every env slot runs episodes: each step
 is logged to the slot's replay Memory, an episode ends on termination or
 after `episode_length` steps, is dumped to the replay record, and its
 slot is reloaded with the next task (batch_env.py:587-719).
@@ -61,11 +62,12 @@ class StepInfo(NamedTuple):
 
 
 class BatchSimEnv:
-    """Fling envs in lockstep.  Observation and primitive settings are the
-    production defaults of run_sim.py (grasp radius 1, adaptive scaling,
-    reach 1.2 m, grasp height 0.02, surface-sampled render); the fling
-    speed and height and the solver knobs default to the production
-    operating point.
+    """Cloth envs in lockstep.  Observation and primitive settings default
+    to run_sim.py's (the fling; grasp radius 1, adaptive scaling, reach
+    1.2 m, grasp height 0.02, surface-sampled render); the fling speed and
+    height and the solver knobs default to the production operating
+    point.  The rotations are -90..90 degrees with the fling among the
+    primitives, a full turn without (nets.rotation_list).
 
     get_task_fn: returns the next env.tasks.Task (TaskLoader.get_next_task)
     for reset() and reloads; layered_spec: the shared lattice of a shirt
@@ -80,7 +82,12 @@ class BatchSimEnv:
                  mesh_caps=None, obs_dim: int = 64, num_rotations: int = 12,
                  scale_factors: Sequence[float] = (
                      1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75),
-                 pix_grasp_dist: int = 8, render_dim: int = 400,
+                 action_primitives: Sequence[str] = ("fling",),
+                 pix_grasp_dist: int = 8, pix_drag_dist: int = 10,
+                 pix_place_dist: int = 10, stretchdrag_dist: float = 0.3,
+                 conservative_grasp_radius: int = 1,
+                 use_adaptive_scaling: bool = True,
+                 reach_distance_limit: float = 1.2, render_dim: int = 400,
                  substeps: int = 4, iterations: int = 16,
                  contact_every: int = 2, contact_iterations: int = 4,
                  contact_window: int = 12, spring_mode: str = "chebyshev",
@@ -107,12 +114,20 @@ class BatchSimEnv:
         self.episode_length = episode_length
         self.max_grid_dim = max_grid_dim
         self.layered_spec = layered_spec
-        self.rotations = torch.as_tensor(rotation_list(num_rotations),
-                                         device=self.device)
+        self.action_primitives = tuple(action_primitives)
+        self.rotations = torch.as_tensor(
+            rotation_list(num_rotations, self.action_primitives),
+            device=self.device)
         self.scale_factors = torch.tensor(scale_factors, dtype=torch.float32,
                                           device=self.device)
         self.obs_dim = obs_dim
         self.pix_grasp_dist = pix_grasp_dist
+        self.pix_drag_dist = pix_drag_dist
+        self.pix_place_dist = pix_place_dist
+        self.obs_kw = dict(
+            conservative_grasp_radius=conservative_grasp_radius,
+            use_adaptive_scaling=use_adaptive_scaling,
+            reach_distance_limit=reach_distance_limit)
         self.render_dim = render_dim
         self.sim_kw = dict(
             substeps=substeps, iterations=iterations,
@@ -122,6 +137,7 @@ class BatchSimEnv:
             self_collision=self_collision)
         self.prim_cfg = PrimitiveConfig(
             fling_speed=fling_speed, fixed_fling_height=fixed_fling_height,
+            stretchdrag_dist=stretchdrag_dist,
             max_program_steps=max_program_steps)
         # solver_params: SolverParams with overrides (the JAX env's
         # solver_overrides); drag or lift set turns the aero pass on
@@ -196,7 +212,7 @@ class BatchSimEnv:
             outs.append(compute_observation(
                 pos[sl], act[sl], self.rotations, self.scale_factors,
                 faces[sl], fmask[sl], image_size=self.render_dim,
-                obs_dim=self.obs_dim,
+                obs_dim=self.obs_dim, **self.obs_kw,
                 palette=None if palette is None else (
                     palette[0][sl], palette[1][sl])))
         return Observation(*(torch.cat(x) for x in zip(*outs)))
@@ -242,7 +258,8 @@ class BatchSimEnv:
         prev_stack = self.obs.obs_stack
         sel, pre_cov, pre_pos, carry, prog = step_begin(
             self.state, vm, self.obs, self.rotations, self.prim_cfg,
-            self.pix_grasp_dist)
+            self.pix_grasp_dist, self.action_primitives, self.pix_drag_dist,
+            self.pix_place_dist)
         max_steps = self.prim_cfg.max_program_steps + STABLE_MAX_STEPS
         # hard cap: every program ends within max_steps sim steps plus its
         # jump-only interpreter steps (< 2 per instruction)
@@ -307,7 +324,8 @@ class BatchSimEnv:
             mem.add_value("postaction_coverage", float(post_cov[i]))
             mem.add_value("rotation", float(sel.rotation[i]))
             mem.add_value("scale", float(sel.scale[i]))
-            mem.add_value("action_primitive", "fling")
+            mem.add_value("action_primitive",
+                          self.action_primitives[int(sel.prim_idx[i])])
             mem.add_value("max_indices", np.asarray(
                 [t, int(sel.row[i]), int(sel.col[i])]))
             mem.add_value("pretransform_pixels",

@@ -19,8 +19,6 @@ from flingbot_tpu_torch.render.rasterizer import render_rgbd
 
 LEFT_ARM_BASE = (0.765, 0.0, 0.0)
 RIGHT_ARM_BASE = (-0.765, 0.0, 0.0)
-REACH_DISTANCE_LIMIT = 1.2
-GRASP_RADIUS = 1  # conservative grasp circle, pixels
 
 
 class Observation(NamedTuple):
@@ -53,11 +51,15 @@ def _norm_last(x):
 
 def compute_observation(positions, active, rotations, scale_factors, faces,
                         tri_mask, *, image_size: int = 400, obs_dim: int = 64,
+                        conservative_grasp_radius: int = 1,
+                        use_adaptive_scaling: bool = True,
+                        reach_distance_limit: float = 1.2,
                         palette=None) -> Observation:
     """positions (B, 3, N), active (B, N); rotations (R,) degrees;
     scale_factors (n_scales,); cloth triangles faces (B, T, 3), tri_mask
-    (B, T).  (compute_observation, observation.py:61, with the production
-    grasp radius 1, adaptive scaling and reach limit 1.2 m.)"""
+    (B, T) (compute_observation, observation.py:61).  The grasp circle's
+    radius is in pixels; without adaptive scaling the crop ratio is 1;
+    an arm reaches pixels within reach_distance_limit m of its base."""
     rgb, depth = render_rgbd(positions, active, faces, tri_mask,
                              image_size=image_size, palette=palette)
     cloth_mask = depth < CAMERA_HEIGHT - 1e-4
@@ -74,6 +76,8 @@ def compute_observation(positions, active, rotations, scale_factors, faces,
     cropcol = torch.maximum(S - 2 * cmin, S - 2 * (S - cmax))
     crop = torch.maximum(croprow, cropcol).to(torch.float32) * 1.5
     ratio = torch.where(rows.any(1) & (crop < S), crop / S, 1.0)
+    if not use_adaptive_scaling:
+        ratio = torch.ones_like(ratio)
     scales = scale_factors.to(torch.float32)[None] * ratio[:, None]
 
     rr = torch.arange(S, dtype=torch.float32, device=dev).view(1, S, 1)
@@ -81,9 +85,9 @@ def compute_observation(positions, active, rotations, scale_factors, faces,
     world = pixel_to_world(rr.expand(B, S, S), cc.expand(B, S, S), depth, S)
     left = torch.tensor(LEFT_ARM_BASE, dtype=torch.float32, device=dev)
     right = torch.tensor(RIGHT_ARM_BASE, dtype=torch.float32, device=dev)
-    reach_l = _norm_last(world - left) < REACH_DISTANCE_LIMIT
-    reach_r = _norm_last(world - right) < REACH_DISTANCE_LIMIT
-    grasp_ok = erode_disk(cloth_mask, GRASP_RADIUS)
+    reach_l = _norm_last(world - left) < reach_distance_limit
+    reach_r = _norm_last(world - right) < reach_distance_limit
+    grasp_ok = erode_disk(cloth_mask, conservative_grasp_radius)
 
     src = torch.cat([rgb, depth[..., None], reach_l[..., None].float(),
                      reach_r[..., None].float(), grasp_ok[..., None].float()],

@@ -1,6 +1,6 @@
 """Manipulation primitives as trajectory programs run by a batched
-interpreter (counterpart of flingbot_tpu/env/primitives.py; the fling
-primitive only).
+interpreter (counterpart of flingbot_tpu/env/primitives.py): fling,
+drag, place and stretch-drag.
 
 A primitive is a program, a fixed-length array of instructions; the
 interpreter keeps one program counter per env and runs ONE solver step per
@@ -8,13 +8,18 @@ body call for every env that simulates.  An env that has finished its
 program is a no-op, kept with torch.where(run, new, old) exactly as the
 vmapped while_loop keeps it.  `program_chunk` runs up to `chunk_steps`
 body calls and returns a (B,) done mask; the host reads it once per chunk.
+Each env may run another primitive: `build_selected_program` builds every
+primitive's program for the whole batch, pads them to one length and
+gathers each env's own by its prim_idx.
 
   kind 0  MOVE       servo to base + cd * grasp_dist + ch * fling_height
   kind 1  STRETCH    widen the grasp until the cloth midpoint is stable
   kind 2  LIFT       raise the fling height until the cloth clears the floor
   kind 3  CHECKGRASP cloth not lifted (max y < 0.2) -> terminate + jump
   kind 4  CONDJUMP   jump if a build-time condition holds
-  kind 5  DRAGREL    (stretchdrag only; not ported)
+  kind 5  DRAGREL    servo to picker_pos + base, taken at phase entry
+                     (stretch-drag); like the JAX interpreter, the phase
+                     ends after one step
   kind 6  STABILIZE  release, park the arms, simulate until max |v| < tol
 """
 
@@ -47,6 +52,7 @@ STABLE_TOL = 1e-2
 STABLE_MAX_STEPS = 300
 
 _RESET_TARGETS = ((0.5, 0.5, -0.5), (-0.5, 0.5, -0.5))
+_OTHER_PARK = (-0.2, 0.3, -0.2)  # the idle arm of drag and place
 _CD_X = ((0.5, 0.0, 0.0), (-0.5, 0.0, 0.0))
 _CH_Y = ((0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
 
@@ -75,6 +81,7 @@ class PrimitiveConfig(NamedTuple):
     grasp_height: float = 0.02
     fling_speed: float = 6e-3
     fixed_fling_height: float = -1.0
+    stretchdrag_dist: float = 0.3
     max_program_steps: int = 4000
 
 
@@ -153,13 +160,138 @@ def build_fling_program(p1, p2, g1, g2, cfg: PrimitiveConfig):
                                      device=dev)
 
 
+def _at_height(p, y):
+    """(B, 3) points with y set to y."""
+    p = p.clone()
+    p[:, 1] = y
+    return p
+
+
+def _single_arm(g1, path):
+    """The single-arm programs of drag and place: skip all unless p1's
+    grasp circle is on cloth (g1), then visit `path` with the other arm
+    parked (each entry: point (B, 3), grasp flag of the first arm), then
+    reset the arms."""
+    B, dev = g1.shape[0], g1.device
+    other = torch.tensor(_OTHER_PARK, device=dev).expand(B, 3)
+    mk = lambda *a, **k: _mk(B, dev, *a, **k)  # noqa: E731
+    instrs = [mk(CONDJUMP, cond=1.0 - g1.to(torch.float32),
+                 jump=len(path) + 2)]
+    instrs += [mk(MOVE, base=torch.stack([p, other], 1),
+                  grasp=(float(g), 0.0), speed=5e-3) for p, g in path]
+    instrs.append(mk(MOVE, base=_RESET_TARGETS, speed=5e-3))
+    return _pack(instrs), torch.full((B,), float(np.float32(0.3)),
+                                     device=dev)
+
+
+def build_drag_program(p1, p2, g1, g2, cfg: PrimitiveConfig):
+    """pick_and_drag (simEnv.py:320-344): one arm drags p1 along the
+    ground to p2."""
+    gh = cfg.grasp_height
+    p1, p2 = _at_height(p1, gh), _at_height(p2, gh)
+    path = [(_at_height(p1, 0.3), 0), (p1, 0), (p2, 1),
+            (_at_height(p2, 0.3), 0)]
+    return _single_arm(g1, path)
+
+
+def build_place_program(p1, p2, g1, g2, cfg: PrimitiveConfig):
+    """pick_and_place (simEnv.py:346-372): one arm lifts p1 0.2 m and puts
+    it down at p2."""
+    gh = cfg.grasp_height
+    p1, p2 = _at_height(p1, gh), _at_height(p2, gh)
+    prepick, preplace = _at_height(p1, 0.2), _at_height(p2, 0.2)
+    path = [(prepick, 0), (p1, 0), (prepick, 1), (preplace, 1), (p2, 1),
+            (preplace, 0)]
+    return _single_arm(g1, path)
+
+
+def build_stretchdrag_program(p1, p2, g1, g2, cfg: PrimitiveConfig):
+    """pick_stretch_drag (simEnv.py:374-429): grasp both points, stretch
+    when both are on cloth, drag perpendicular to the grasp line.
+    Returns the grasp height as the initial fling height: the stretch runs
+    at grasp height (simEnv.py:405-406)."""
+    B, dev = p1.shape[0], p1.device
+    gh = cfg.grasp_height
+    p1, p2 = _at_height(p1, gh), _at_height(p2, gh)
+    pre1, pre2 = _at_height(p1, 0.3), _at_height(p2, 0.3)
+    gflags = torch.stack([g1, g2], 1).to(torch.float32)
+    both = (g1 & g2).to(torch.float32)
+    any_grasp = (g1 | g2).to(torch.float32)
+    # drag direction: cross(p1 - p2, up), scaled (simEnv.py:409-412), then
+    # 0.1 m up to keep the arms above the cloth (:418)
+    up = torch.tensor([0.0, 1.0, 0.0], device=dev).expand(B, 3)
+    drag = torch.linalg.cross(p1 - p2, up, dim=-1)
+    drag = cfg.stretchdrag_dist * drag / torch.clamp(_norm(drag),
+                                                     min=1e-9)[:, None]
+    drag = drag + torch.tensor([0.0, 0.1, 0.0], device=dev)
+    mk = lambda *a, **k: _mk(B, dev, *a, **k)  # noqa: E731
+    instrs = [
+        mk(CONDJUMP, cond=1.0 - any_grasp, jump=8),
+        mk(MOVE, base=torch.stack([pre1, pre2], 1)),
+        mk(MOVE, base=torch.stack([p1, p2], 1), speed=2e-3),
+        # stretch only if both points grasp cloth; the grasp flags stay on
+        # through the jump
+        mk(CONDJUMP, cond=1.0 - both, jump=5, grasp=gflags),
+        mk(STRETCH, grasp=gflags, speed=5e-4, min_steps=20),
+        mk(DRAGREL, base=torch.stack([drag, drag], 1), grasp=gflags,
+           speed=2e-3),
+        # lift away from the drop point
+        mk(MOVE, base=torch.stack([pre1 + drag, pre2 + drag], 1)),
+        mk(MOVE, base=_RESET_TARGETS, speed=5e-3),
+    ]
+    return _pack(instrs), torch.full((B,), float(np.float32(gh)),
+                                     device=dev)
+
+
+PROGRAM_BUILDERS = {
+    "fling": build_fling_program,
+    "drag": build_drag_program,
+    "place": build_place_program,
+    "stretchdrag": build_stretchdrag_program,
+}
+
+
+def _append(prog: Program, instr) -> Program:
+    return Program(*(torch.cat([a, b[:, None]], 1)
+                     for a, b in zip(prog, instr)))
+
+
 def append_stabilize(prog: Program) -> Program:
     """Append a STABILIZE phase at the program end: abort jumps target the
     old end, so they land on the stabilize (simEnv.py:466-477)."""
     B, dev = prog.kind.shape[0], prog.kind.device
-    extra = _mk(B, dev, STABILIZE, base=_RESET_TARGETS)
-    return Program(*(torch.cat([a, b[:, None]], 1)
-                     for a, b in zip(prog, extra)))
+    return _append(prog, _mk(B, dev, STABILIZE, base=_RESET_TARGETS))
+
+
+def pad_program(prog: Program, num_instructions: int) -> Program:
+    """Pad to num_instructions with terminators (a CONDJUMP past the end),
+    so programs of several primitives stack (pad_program,
+    primitives.py:303)."""
+    B, dev = prog.kind.shape[0], prog.kind.device
+    term = _mk(B, dev, CONDJUMP, cond=1.0, jump=num_instructions)
+    for _ in range(num_instructions - prog.num_instructions):
+        prog = _append(prog, term)
+    return prog
+
+
+def build_selected_program(primitives, prim_idx, p1, p2, g1, g2,
+                           cfg: PrimitiveConfig):
+    """Every primitive's program for the whole batch, each ending in
+    STABILIZE (appended before padding, so abort jumps land on it), padded
+    to one length and gathered per env by prim_idx (B,)
+    (build_selected_program, primitives.py:316).  Returns (Program,
+    init fling height (B,))."""
+    progs, fhs = [], []
+    for prim in primitives:
+        prog, fh = PROGRAM_BUILDERS[prim](p1, p2, g1, g2, cfg)
+        progs.append(append_stabilize(prog))
+        fhs.append(fh)
+    num_i = max(p.num_instructions for p in progs)
+    progs = [pad_program(p, num_i) for p in progs]
+    ar = torch.arange(p1.shape[0], device=p1.device)
+    prog = Program(*(torch.stack(leaves)[prim_idx, ar]
+                     for leaves in zip(*progs)))
+    return prog, torch.stack(fhs)[prim_idx, ar]
 
 
 @dataclasses.dataclass
@@ -257,11 +389,15 @@ def body(c: Carry, topo, params: SolverParams, program: Program,
 
     is_stretch = kind == STRETCH
     is_lift = kind == LIFT
+    is_dragrel = kind == DRAGREL
+    drag_target = st.picker_pos + ins.base
     targets = torch.where(
         entry[:, None, None],
-        torch.where(is_stretch[:, None, None], s_targets, static_target),
-        torch.where((is_stretch | is_lift)[:, None, None], c.targets,
-                    static_target))
+        torch.where(is_stretch[:, None, None], s_targets,
+                    torch.where(is_dragrel[:, None, None], drag_target,
+                                static_target)),
+        torch.where((is_stretch | is_lift | is_dragrel)[:, None, None],
+                    c.targets, static_target))
     es = entry & is_stretch
     stretch_mid = torch.where(es[:, None], s_mid, c.stretch_mid)
     stretch_dir = torch.where(es[:, None], s_dir, c.stretch_dir)

@@ -1,7 +1,7 @@
 """One env step in three parts, batched (counterpart of step_begin /
 step_finish in flingbot_tpu/env/sim_env.py):
 
-  step_begin   action selection + pre-coverage + the fling program
+  step_begin   action selection + pre-coverage + each env's program
   (host loop)  primitives.program_chunk until every env is done; the
                program ends in STABILIZE, the postaction settle
   step_finish  no-move early exit + post-coverage
@@ -15,24 +15,26 @@ from flingbot_tpu_torch.env.action import select_action
 from flingbot_tpu_torch.env.coverage import get_current_covered_area
 from flingbot_tpu_torch.env.observation import Observation
 from flingbot_tpu_torch.env.primitives import (
-    PrimitiveConfig, append_stabilize, build_fling_program,
-    init_program_carry)
+    PrimitiveConfig, build_selected_program, init_program_carry)
 
 NO_MOVE_EPS = 5e-2  # postaction early-exit threshold (simEnv.py:475-477)
 
 
 def step_begin(state, value_maps: torch.Tensor, obs: Observation,
                rotations: torch.Tensor, prim_cfg: PrimitiveConfig,
-               pix_grasp_dist: int = 8):
-    """Returns (sel, pre_cov, pre_pos, carry, program): the fling program
-    of each env's selected action, ending in STABILIZE (the fling-only
-    case of build_selected_program, primitives.py:316)."""
-    sel = select_action(value_maps, obs, rotations,
-                        pix_grasp_dist=pix_grasp_dist)
+               pix_grasp_dist: int = 8, primitives=("fling",),
+               pix_drag_dist: int = 10, pix_place_dist: int = 10):
+    """Returns (sel, pre_cov, pre_pos, carry, program): the program of
+    each env's selected primitive and action, ending in STABILIZE
+    (step_begin, sim_env.py:179)."""
+    sel = select_action(value_maps, obs, rotations, primitives=primitives,
+                        pix_grasp_dist=pix_grasp_dist,
+                        pix_drag_dist=pix_drag_dist,
+                        pix_place_dist=pix_place_dist)
     pre_cov = get_current_covered_area(state.positions, state.active)
-    prog, init_fh = build_fling_program(
-        sel.p1_world, sel.p2_world, sel.p1_grasp, sel.p2_grasp, prim_cfg)
-    prog = append_stabilize(prog)
+    prog, init_fh = build_selected_program(
+        primitives, sel.prim_idx, sel.p1_world, sel.p2_world, sel.p1_grasp,
+        sel.p2_grasp, prim_cfg)
     d = sel.p1_world - sel.p2_world
     dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
                       + d[:, 2] * d[:, 2])

@@ -247,8 +247,13 @@ class MaximumValuePolicy:
         self.value_expl_prob = float(d.get("value_expl_prob", 0.0))
 
 
-def rotation_list(num_rotations: int) -> np.ndarray:
-    """The rotations of the fling action space in degrees, -90..90
-    (simEnv.py:70-76)."""
-    return np.asarray([(2 * i / (num_rotations - 1) - 1) * 90
+def rotation_list(num_rotations: int,
+                  primitives: Sequence[str] = ("fling",)) -> np.ndarray:
+    """The rotations of the action space in degrees (simEnv.py:70-76):
+    -90..90 with the fling, whose two grasp points make a half turn the
+    same action; else a full turn, -180..180 - 360 / num_rotations."""
+    if "fling" in primitives:
+        return np.asarray([(2 * i / (num_rotations - 1) - 1) * 90
+                           for i in range(num_rotations)], np.float32)
+    return np.asarray([(2 * i / num_rotations - 1) * 180
                        for i in range(num_rotations)], np.float32)

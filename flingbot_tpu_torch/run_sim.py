@@ -3,8 +3,10 @@ run_sim.py).
 
 Build the policy (resuming from `{log}/latest_ckpt.pth`), step a batch of
 envs in lockstep, and every round: act, step the envs (episodes are
-dumped to the replay directory), optimize each primitive's value net and
-checkpoint, and print statistics every 32 rounds.
+dumped to the replay directory), optimize each primitive's value net on
+that primitive's transitions and checkpoint, and print statistics every
+32 rounds.  `--action_primitives` takes any of fling, stretchdrag, drag
+and place (one value net each).
 
     python -m flingbot_tpu_torch.run_sim --tasks tasks.npz --log runs/exp1
     python -m flingbot_tpu_torch.run_sim --tasks eval.npz --eval \
@@ -125,7 +127,14 @@ def main(argv=None, max_rounds=None):
         **detect_topology_buckets(args.tasks),
         obs_dim=args.obs_dim, num_rotations=args.num_rotations,
         scale_factors=args.scale_factors,
-        pix_grasp_dist=args.pix_grasp_dist, render_dim=args.render_dim,
+        action_primitives=args.action_primitives,
+        pix_grasp_dist=args.pix_grasp_dist, pix_drag_dist=args.pix_drag_dist,
+        pix_place_dist=args.pix_place_dist,
+        stretchdrag_dist=args.stretchdrag_dist,
+        conservative_grasp_radius=args.conservative_grasp_radius,
+        use_adaptive_scaling=args.use_adaptive_scaling,
+        reach_distance_limit=args.reach_distance_limit,
+        render_dim=args.render_dim,
         substeps=args.substeps, iterations=args.iterations,
         contact_every=args.contact_every,
         contact_iterations=args.contact_iterations,

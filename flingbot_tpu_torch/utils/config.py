@@ -155,11 +155,7 @@ def config_parser(parser: ArgumentParser = None) -> ArgumentParser:
 _UNPORTED = {
     "backend": ("pallas", "Queue 1 item 10"),
     "contact_mode": ("sort", "Queue 1 item 10"),
-    "action_primitives": (["fling"], "Queue 1 item 5"),
     "dump_visualizations": (False, "Queue 1 item 7"),
-    "conservative_grasp_radius": (1, "Queue 1 item 14"),
-    "use_adaptive_scaling": (True, "Queue 1 item 14"),
-    "reach_distance_limit": (1.2, "Queue 1 item 14"),
 }
 
 

@@ -50,6 +50,25 @@ def make_pair(dims, max_dim, rng, **kw):
     return jstates, jtopos, port_state(jstates, topo), topo
 
 
+# XLA:CPU under jax.jit may multiply by the reciprocal of a constant
+# divisor and contract a * b + c into an FMA, depending on the host; the
+# JAX package's coverage then differs from an IEEE float32 evaluation of
+# its formula by up to 3 ulps (python -m tools.host_rounding: 77 of 200
+# crumpled clouds differ, at most 3 ulps, on an AVX-512 host).  4 eps
+# relative is 4-8 ulps.
+COVERAGE_RTOL = 4 * float(np.finfo(np.float32).eps)
+
+
+def ieee_coverage(state) -> np.ndarray:
+    """(B,) coverage of a port ClothState by the JAX package's formula,
+    each float32 operation rounded once (tools/host_rounding.py)."""
+    from tools.host_rounding import coverage_ieee
+
+    pos = np.swapaxes(state.positions.numpy(), 1, 2)
+    return np.array([coverage_ieee(p, a)
+                     for p, a in zip(pos, state.active.numpy())])
+
+
 def stack(trees):
     return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *trees)
 

@@ -32,6 +32,7 @@ try:  # the JAX package, for the tests against it
     from flingbot_tpu.engine.topology import (
         build_grid_topology as jax_topology)
     import tests.test_torch_common  # noqa: F401  (CPU platform, 2 threads)
+    from tools.host_rounding import substeps_spread
 except ImportError:
     jnp = None
 
@@ -76,8 +77,19 @@ def test_substeps_match_pallas(dims, picker, picker_last):
                             torch.tensor(V)[None], torch.tensor(w)[None], **kw)
     # tolerances of tests/test_pallas.py:76-81: float reassociation over 32
     # Chebyshev iterations; V = dP / dt_sub amplifies a position error 400x
-    for name, j, t, tol in zip(("P", "V", "prev"), jout, tout,
-                               (3e-6, 3e-3, 3e-6)):
+    tols = (3e-6, 3e-3, 3e-6)
+    if not picker_last:
+        # the picker push is discontinuous (a particle is inside the sphere
+        # or not), so the reference itself moves further than that under
+        # its host's rounding: hold the port to the JAX-vs-JAX spread under
+        # 1-ulp input noise where that is larger (tools/host_rounding.py:
+        # P 1.70e-5, V 2.56e-4, prev 5.51e-7 on an AVX-512 host)
+        spread = substeps_spread(n_noise=2, case=dict(
+            dim=DIM, picker=picker, n_sub=2, iterations=16,
+            picker_last=picker_last))
+        tols = tuple(max(tol, spread[f"substeps_spread_{name}"])
+                     for name, tol in zip(("P", "V", "prev"), tols))
+    for name, j, t, tol in zip(("P", "V", "prev"), jout, tout, tols):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=tol,
                                    err_msg=name)
     if dims[0] < DIM:  # slots outside the cloth never move

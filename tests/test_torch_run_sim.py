@@ -114,8 +114,7 @@ def test_exploration():
 
 @pytest.mark.parametrize("flags", [
     ["--backend", "xla"], ["--contact_mode", "sweep"],
-    ["--action_primitives", "fling", "drag"], ["--dump_visualizations"],
-    ["--reach_distance_limit", "1.0"]])
+    ["--dump_visualizations"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_sim.main(SMALL + ["--tasks", "unused.npz"] + flags)
