@@ -16,8 +16,10 @@ Phases, each printed on its own line with its wall seconds:
      100x100 grids), the mesh mode of the contacts kernel at the shirt
      path's (16 shirts of data/shirts/*.obj on the 96x64 layered lattice):
      max abs error against the stated tolerance, CUDA-event times; the
-     no-self-collision launch and contacts at window 16 / 8 iterations
-     checked too; plus one aero frame of 4 of the grid kernels' compressed
+     no-self-collision launch checked too; the task generator's launches
+     (substeps at 30 iterations on the 104 lattice and, at 64 envs of
+     112-127, on the 128 lattice; contacts at window 16 / 8 iterations on
+     both); plus one aero frame of 4 of the grid kernels' compressed
      synthetic cloths on the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
      operating point: 512 envs of 100x100, 4 substeps x 16 Chebyshev
@@ -70,6 +72,15 @@ Phases, each printed on its own line with its wall seconds:
      adaptive scaling, reach 1.0 m), counters zeroed before and read
      after.  Fails if a primitive is never selected or never grasps, if
      substeps or contacts never launch, or if a net is left untrained
+ 11  the task generation path: generate_tasks_batch makes 32 hard tasks on
+     the 104 lattice and 16 large tasks (112-127 a side) on the 128
+     lattice at the full schedule (sweep 200, hold 120, settle <= 300),
+     launch counters zeroed before and read after each; both sets read
+     back through TaskLoader; one 16-env heuristic eval step on the large
+     tasks; profiles of 16 sweep and 16 settle frames at 100 envs on
+     the 104 lattice and 64 on the 128 lattice.  Fails if a
+     kernel never launches, a batch keeps no task, a coverage ratio
+     falls outside (0, 1.2], or the read-back differs
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -109,7 +120,11 @@ TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
                 for k in ("P", "prev", "V")})
-TOL["contacts_w16.xyz"] = TOL["contacts.xyz"]
+for _kind in ("substeps_gen", "substeps_gen128"):
+    TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
+                for k in ("P", "prev", "V")})
+for _kind in ("contacts_gen", "contacts_gen128"):
+    TOL[f"{_kind}.xyz"] = TOL["contacts.xyz"]
 # the card's frame against the CPU plain path: the card's rsqrt is
 # approximate and CUDA divides by a host scalar through its reciprocal
 FRAME_TOL = 1e-4
@@ -132,6 +147,16 @@ ACTION_PRIMS = ("fling", "stretchdrag", "drag", "place")
 # 5e-3 m a step
 ACTION_ENVS, ACTION_REPLAY_STEPS = 32, 320
 SMOKE_ENVS = 128
+# the task generator (phase 11): 32 hard tasks on the 104 lattice, 16
+# large ones (112-127 a side) on the 128 lattice, in one batch each, at
+# the full schedule; the large set's generator batch is 64 (phase 2's
+# 128-lattice rows)
+GEN_HARD, GEN_LARGE, GEN_CHUNK = 32, 16, 96
+LARGE_DIM, LARGE_ENVS = 128, 64
+# the generator batches of the hard and large sets: (envs, lattice,
+# smallest and largest cloth side)
+GEN_PROFILES = ((100, 104, 64, 104), (LARGE_ENVS, LARGE_DIM, 112, 128))
+MAX_RATIO = 1.2  # initial coverage / flatten area of a generated task
 BENCH_ENVS, BENCH_DIM, BENCH_STEPS, BENCH_WINDOWS = 512, 100, 20, 5
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
               contact_iterations=4, contact_window=12)
@@ -259,7 +284,7 @@ def phase_build(device):
                 r"(\d+) bytes spill (?:stores|loads)", line))
     if spills:
         raise AssertionError(f"a kernel spills registers ({spills} bytes)")
-    for H in (104, BENCH_DIM):
+    for H in (104, BENCH_DIM, LARGE_DIM):
         band, smem = kernels.substeps_band(H, H)
         n = kernels.substeps_max_clusters(device.index or 0, smem)
         log(f"  substeps at {H}x{H}, cluster of {kernels.SUBSTEPS_CLUSTER} "
@@ -267,9 +292,9 @@ def phase_build(device):
             f"cudaOccupancyMaxActiveClusters {n}")
 
 
-def synthetic_inputs(B, H, W, gen, device, full=False):
+def synthetic_inputs(B, H, W, gen, device, full=False, lo=64):
     """Wrinkled, compressed cloths (so contacts fire) of seeded dims in
-    64..H (full: H x W), an active picker touching each, seeded
+    lo..H (full: H x W), an active picker touching each, seeded
     velocities."""
     import torch
 
@@ -278,7 +303,7 @@ def synthetic_inputs(B, H, W, gen, device, full=False):
     from flingbot_tpu_torch.engine.topology import (
         build_grid_topology, lattice_valid)
 
-    dims = torch.randint(64, H + 1, (B, 2), generator=gen)
+    dims = torch.randint(lo, H + 1, (B, 2), generator=gen)
     if full:
         dims = torch.tensor([[W, H]] * B)
     topo = build_grid_topology(dims[:, 0].numpy(), dims[:, 1].numpy(),
@@ -325,7 +350,6 @@ def synthetic_state(P, V, w, valid, picker):
 def phase_kernels(device):
     import torch
 
-    from flingbot_tpu_torch.engine import collisions, kernels
     from flingbot_tpu_torch.engine.state import SolverParams
 
     gen = torch.Generator().manual_seed(1)
@@ -358,35 +382,29 @@ def phase_kernels(device):
         dict(n_sub=4, iterations=16, cheb=False, picker_last=True))
     del jP, jV, jw
 
-    # contacts on the Morton-sorted state the substeps left behind
-    params = SolverParams()
-    Pn, _, prev = out_k
-    order, srt = collisions.sort_particles(
-        Pn.reshape(B, 3, -1), prev.reshape(B, 3, -1), w.reshape(B, -1),
-        valid.reshape(B, -1), rest_dist=params.radius, lattice_w=W)
-    cp = collisions.contact_params(params, params.radius, B, device)
-    ckw = dict(window=12, iterations=4)
-    ok_ = kernels.contacts(cp, *srt, **ckw)
-    op_ = kernels.contacts_plain(cp, *srt, **ckw)
-    torch.cuda.synchronize()
-    err["contacts.xyz"] = max(float((a - b).abs().max())
-                              for a, b in zip(ok_, op_))
-    moved = max(float((a - s).abs().max()) for a, s in zip(ok_, srt))
-    ms_k = cuda_ms(lambda: kernels.contacts(cp, *srt, **ckw), 10)
-    ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt, **ckw), 3)
-    n_active = [dx * dy for dx, dy in dims]
-    b_ms, b_by = bound(*contacts_work(n_active, H * W, 12, 4))
-    rows["contacts"] = dict(max_abs_err=err["contacts.xyz"], ms=ms_k,
-                            plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, B=B)
-    log_tiles("contacts", B, H * W, **ckw)
-    # the flex-parity knobs: window 16, 8 iterations (halo 128)
-    wkw = dict(window=16, iterations=8)
-    err["contacts_w16.xyz"] = max(
-        float((a - b).abs().max()) for a, b in zip(
-            kernels.contacts(cp, *srt, **wkw),
-            kernels.contacts_plain(cp, *srt, **wkw)))
-    log(f"  contacts at window 16, 8 iterations: "
-        f"{cuda_ms(lambda: kernels.contacts(cp, *srt, **wkw), 10):.3f} ms")
+    # contacts on the Morton-sorted state the substeps left behind, at
+    # the env's knobs and at the generator's (window 16, 8 iterations:
+    # halo 128)
+    rows["contacts"], moved = kernel_contacts(
+        "contacts", out_k, w, valid, dims, err, window=12, iterations=4)
+    rows["contacts_gen"], _ = kernel_contacts(
+        "contacts_gen", out_k, w, valid, dims, err, window=16, iterations=8)
+    # the generator's substeps (30 iterations) on the 104 lattice, and on
+    # the large set's 128 lattice at its batch (64 envs of 112-127)
+    rows["substeps_gen"], _ = kernel_substeps(
+        "substeps_gen", pvec, P, V, w, dims, err,
+        dict(n_sub=2, iterations=30, picker_last=False))
+    _, lpvec, lP, lV, lw, lvalid, _ = synthetic_inputs(
+        LARGE_ENVS, LARGE_DIM, LARGE_DIM, gen, device, lo=112)
+    ldims = [(int(v[0]), int(v[1])) for v in
+             lpvec[:, 10:12].to(torch.int64).tolist()]
+    rows["substeps_gen128"], lout = kernel_substeps(
+        "substeps_gen128", lpvec, lP, lV, lw, ldims, err,
+        dict(n_sub=2, iterations=30, picker_last=False))
+    rows["contacts_gen128"], _ = kernel_contacts(
+        "contacts_gen128", lout, lw, lvalid, ldims, err, window=16,
+        iterations=8)
+    del lP, lV, lw, lout
     rows.update(kernel_mesh(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
     frame_check(synthetic_state(P, V, w, valid, picker), topo,
@@ -432,6 +450,40 @@ def kernel_substeps(name, pvec, P, V, w, dims, err, kw, timed=True):
     return dict(max_abs_err=max(by_out.values()),
                 max_abs_err_by_output=by_out, ms=ms_k, plain_ms=ms_p,
                 bound_ms=b_ms, bound_by=b_by, B=B), out_k
+
+
+def kernel_contacts(name, out_sub, w, valid, dims, err, *, window,
+                    iterations):
+    """The grid mode of the contacts kernel against its plain version on
+    the Morton-sorted state that a substeps launch left behind
+    (out_sub = (P, V, prev)): max abs error into err, CUDA-event times
+    and the bound.  Returns (row, how far the kernel moved particles)."""
+    import torch
+
+    from flingbot_tpu_torch.engine import collisions, kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    params = SolverParams()
+    Pn, _, prev = out_sub
+    B, _, H, W = Pn.shape
+    _, srt = collisions.sort_particles(
+        Pn.reshape(B, 3, -1), prev.reshape(B, 3, -1), w.reshape(B, -1),
+        valid.reshape(B, -1), rest_dist=params.radius, lattice_w=W)
+    cp = collisions.contact_params(params, params.radius, B, Pn.device)
+    kw = dict(window=window, iterations=iterations)
+    out_k = kernels.contacts(cp, *srt, **kw)
+    out_p = kernels.contacts_plain(cp, *srt, **kw)
+    torch.cuda.synchronize()
+    err[f"{name}.xyz"] = max(float((a - b).abs().max())
+                             for a, b in zip(out_k, out_p))
+    moved = max(float((a - s).abs().max()) for a, s in zip(out_k, srt))
+    ms_k = cuda_ms(lambda: kernels.contacts(cp, *srt, **kw), 10)
+    ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt, **kw), 3)
+    b_ms, b_by = bound(*contacts_work([dx * dy for dx, dy in dims], H * W,
+                                      window, iterations))
+    log_tiles(name, B, H * W, **kw)
+    return dict(max_abs_err=err[f"{name}.xyz"], ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by, B=B), moved
 
 
 def log_tiles(name, B, N, window, iterations):
@@ -1053,6 +1105,142 @@ def phase_action_space(device):
     return launches
 
 
+def phase_generate(device):
+    """The task generation path: generate_tasks_batch (the entry point of
+    python -m flingbot_tpu_torch.env.tasks and of generate_sets) makes
+    GEN_HARD hard tasks on the 104 lattice and GEN_LARGE large tasks on
+    the 128 lattice at the full schedule into a temporary directory,
+    launch counters zeroed before and read after each; each set read back
+    through TaskLoader (every task's coverage recomputed from its stored
+    particles equals its stored initial coverage); then one GEN_LARGE-env
+    heuristic eval step on the large tasks, counters zeroed before and
+    read after; then profiles of 16 sweep frames and 16 settle frames at
+    each of GEN_PROFILES.
+    Fails if a kernel never launched, a batch kept no task, a task's
+    coverage ratio falls outside (0, MAX_RATIO], or the read-back
+    differs."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.env import tasks
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.coverage import get_current_covered_area
+    from flingbot_tpu_torch.env.scene import make_batch, scene_task
+    from flingbot_tpu_torch.eval_quality import heuristic_value_maps
+    from flingbot_tpu_torch.generate_sets import SETS, set_stats
+
+    launches = {}
+    params = SolverParams(dynamic_friction=tasks.GEN_FRICTION)
+    with tempfile.TemporaryDirectory(suffix="_tasks") as out:
+        for name, num, row in (("hard", GEN_HARD, "gen"),
+                               ("large", GEN_LARGE, "gen128")):
+            _, _, diff, mins, maxs, strict, grid, seed = SETS[name]
+            path = os.path.join(out, f"{name}.npz")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                tasks.generate_tasks_batch(
+                    path, num, batch=num, seed=seed, min_cloth_size=mins,
+                    max_cloth_size=maxs, strict_min_edge_length=strict,
+                    task_difficulty=diff, max_grid_dim=grid,
+                    chunk_steps=GEN_CHUNK, solver_params=params,
+                    device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[f"substeps_{row}"] = kernels.LAUNCHES["substeps"]
+            launches[f"contacts_{row}"] = kernels.LAUNCHES["contacts"]
+            for line in text.getvalue().splitlines():
+                log(f"  {line}")
+            kept = [int(k) for k in re.findall(r"\((\d+) of \d+ kept",
+                                               text.getvalue())]
+            stats = set_stats(path)
+            log(f"  {name}: {stats['n']} tasks on the {grid} lattice in "
+                f"{seconds:.2f} s; {json.dumps(stats)}; launches "
+                f"substeps {launches[f'substeps_{row}']} contacts "
+                f"{launches[f'contacts_{row}']}")
+            if not kept or min(kept) == 0 or stats["n"] != num:
+                raise AssertionError(f"{name}: a batch kept no task {kept}")
+            for k in ("substeps", "contacts"):
+                if launches[f"{k}_{row}"] <= 0:
+                    raise AssertionError(f"{k} kernel never launched in "
+                                         f"the {name} generator")
+            loader = tasks.TaskLoader(path)
+            read = [loader.get_next_task() for _ in range(len(loader))]
+            ratios = np.array([t.initial_coverage / t.flatten_area
+                               for t in read])
+            if not ((ratios > 0) & (ratios <= MAX_RATIO)).all():
+                raise AssertionError(f"{name}: coverage ratios {ratios}")
+            _, state = make_batch([scene_task(t) for t in read],
+                                  max_grid_dim=grid, device=device)
+            cov = get_current_covered_area(state.positions,
+                                           state.active).cpu().numpy()
+            stored = np.array([t.initial_coverage for t in read],
+                              np.float32)
+            if not (np.array_equal(cov, stored)
+                    and bool(torch.isfinite(state.positions).all())):
+                raise AssertionError(f"{name}: the read-back differs")
+        # one heuristic eval step on the generated large tasks
+        env = BatchSimEnv(get_task_fn=loader.get_next_task,
+                          num_envs=GEN_LARGE, max_grid_dim=LARGE_DIM,
+                          render_dim=256, chunk_steps=192,
+                          scale_factors=SCALES, device=device, **SOLVER)
+        loader.curr_task_idx = 0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        obs = env.step(heuristic_value_maps(env.reset()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for k in ("substeps", "contacts"):
+            launches[k] = kernels.LAUNCHES[k]
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} kernel never launched in the "
+                                     "eval step on the 128 lattice")
+        last = env.last
+        log(f"  eval step, {GEN_LARGE} generated large tasks on the "
+            f"{LARGE_DIM} lattice: reset + step {seconds:.2f} s; coverage "
+            f"pre {last.pre_coverage.mean():.5f} post "
+            f"{last.post_coverage.mean():.5f} m^2; launches "
+            f"{dict(kernels.LAUNCHES)}")
+        if not bool(torch.isfinite(obs).all()):
+            raise AssertionError("non-finite observation")
+    # sweep frames 16-31 of each set's batch, then 16 settle frames from
+    # there
+    sweep = tasks.SCHEDULES["hard"][0]
+    for B, grid, lo, hi in GEN_PROFILES:
+        draw = tasks.draw_batch(np.random.default_rng(0), B, lo, hi, lo,
+                                "hard", 10)
+        topo, state = tasks.flat_batch(draw, grid, device)
+        slot = tasks.lattice_slot(torch.tensor(draw.picks, device=device),
+                                  topo.dimx, grid)
+        p0 = torch.tensor(np.stack(draw.starts), device=device)
+        p1 = torch.tensor(np.stack(draw.targets), device=device)
+        kw = dict(params=params, sim_kw=tasks.GEN_SIM_KW)
+        saved_w = state.inv_mass[torch.arange(B, device=device), slot]
+        state = tasks.anchored_chunk(
+            tasks.set_inv_mass(state, slot, torch.zeros_like(saved_w)),
+            topo, slot, p0, p1, 0, n_steps=16, sweep_steps=sweep, **kw)
+        released = tasks.set_inv_mass(state, slot, saved_w)
+        k = torch.zeros(B, dtype=torch.int64, device=device)
+        profile_steps(lambda: tasks.anchored_chunk(
+            state, topo, slot, p0, p1, 16, n_steps=16, sweep_steps=sweep,
+            **kw), 16, f"16 sweep frames at B={B} on {grid}")
+        profile_steps(lambda: tasks.settle_chunk(
+            released, topo, k, n_steps=16, max_settle=300,
+            tol=tasks.SETTLE_TOL, **kw), 16,
+            f"16 settle frames at B={B} on {grid}")
+    return launches
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
     and wind set, through the one-substep launches; first one frame of 4
@@ -1159,9 +1347,12 @@ def main():
         train = phase_train(device)
     with Phase("10 action-space path"):
         action = phase_action_space(device)
+    with Phase("11 task generation"):
+        gen = phase_generate(device)
     for name in ("substeps", "contacts"):
-        launches[name] += train[name] + action[name]
+        launches[name] += train[name] + action[name] + gen.pop(name)
     launches["substeps_jacobi"] = jacobi_launches
+    launches.update(gen)
 
     sources = {
         "substeps": ("flingbot_tpu_torch/csrc/substeps.cu",
@@ -1177,9 +1368,15 @@ def main():
         # cheb=False: the plain Jacobi loop of _substeps_kernel
         "substeps_jacobi": ("flingbot_tpu_torch/csrc/substeps.cu",
                             "flingbot_tpu/engine/pallas_kernels.py:229")}
+    # the task generator's launches: 30 iterations, contacts 8 x window 16
+    # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices
+    for lattice in ("gen", "gen128"):
+        sources[f"substeps_{lattice}"] = sources["substeps"]
+        sources[f"contacts_{lattice}"] = sources["contacts"]
     table = []
     for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero",
-                 "substeps_jacobi"):
+                 "substeps_jacobi", "substeps_gen", "contacts_gen",
+                 "substeps_gen128", "contacts_gen128"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -25,7 +25,8 @@ from tools.export_tasks_npz import export
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECT = os.path.join(ROOT, "data", "rect_eval_tasks.hdf5")
 SHIRT = os.path.join(ROOT, "data_r3", "shirt_eval_16.hdf5")
-COMMITTED = ("rect_eval_hard_100", "shirt_eval_16")
+COMMITTED = ("rect_eval_hard_100", "shirt_eval_16", "rect_eval_easy_64",
+             "rect_eval_large_64")
 TASK_ARRAYS = ("cloth_size", "particle_pos", "particle_vel", "shape_pos",
                "phase", "cloth_pos", "cloth_stiff", "mesh_verts",
                "mesh_stretch_edges", "mesh_bend_edges", "mesh_shear_edges",
