@@ -19,7 +19,10 @@ Phases, each printed on its own line with its wall seconds:
      no-self-collision launch checked too; the task generator's launches
      (substeps at 30 iterations on the 104 lattice and, at 64 envs of
      112-127, on the 128 lattice; contacts at window 16 / 8 iterations on
-     both); plus one aero frame of 4 of the grid kernels' compressed
+     both); the mesh mode of the contacts kernel at the generic mesh
+     path's shape (contacts_mesh_generic: the 16 shirts of the shirt eval
+     set built as a MeshTopology padded to detect_mesh_caps' vertex
+     capacity); plus one aero frame of 4 of the grid kernels' compressed
      synthetic cloths on the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
      operating point: 512 envs of 100x100, 4 substeps x 16 Chebyshev
@@ -36,10 +39,13 @@ Phases, each printed on its own line with its wall seconds:
   6  the shirt path: BatchSimEnv of the 16 layered shirts of the shirt
      eval set (data_r3/shirt_eval_16.npz, through TaskLoader and
      detect_topology_buckets) at production knobs: reset ->
-     batch_value_maps -> step, launch counters zeroed before and read
-     after; plus one frame of 4 of those shirts and one of 4 crumpled
-     data/shirts/*.obj shirts on the card against the CPU, and phase 5's
-     profile of 16 interpreter steps
+     batch_value_maps -> a step whose fling runs 18 interpreter steps,
+     the last 16 profiled as in phase 5, then the step's end (post
+     coverage, termination, observation, replay record, reloads), launch
+     counters zeroed before and read after (the whole fling ran here
+     until phase 12 was added: the script keeps its time; the shirt eval
+     job runs it, PERF.md); plus one frame of 4 of those shirts and one
+     of 4 crumpled data/shirts/*.obj shirts on the card against the CPU
   7  the aero path: phase 4's start states with drag and lift set (an
      option of the solver; flingbot scenes run none): one frame of 4 envs
      on the card against the CPU, then reset -> batch_value_maps -> step
@@ -53,12 +59,13 @@ Phases, each printed on its own line with its wall seconds:
   9  the train path: flingbot_tpu_torch.run_sim from the round-4
      checkpoint exported from the JAX package (runs/round4/latest_ckpt.npz;
      16 channels, 8 blocks, obs 64, 96 transforms) on the hard eval set,
-     64 envs, episodes of 2 steps, batch 128, 2 batches per update, D4
-     augmentation, render 256: 3 rounds, of which at least 2 optimize;
+     64 envs, episodes of 1 step, batch 64, 2 batches per update, D4
+     augmentation, render 256: 2 rounds, both optimizing (3 rounds of
+     2-step episodes at batch 128 until phase 12 was added);
      launch counters zeroed before and read after the phase; the saved
      checkpoint reloaded into a fresh policy gives bit-equal value maps;
-     then one --eval round from it.  Prints each round's act / step /
-     optimize seconds, ms per train step at batch 128 and a profile of 3
+     then one 16-env --eval round from it.  Prints each round's act /
+     step / optimize seconds, ms per train step at batch 128, a profile of 3
      of them, s per dataset batch, and value-map inference ms at 64 envs
      x 96 transforms with and without test-time averaging
  10  the action-space path: 32 tasks of the hard eval set at production
@@ -81,6 +88,20 @@ Phases, each printed on its own line with its wall seconds:
      the 104 lattice and 64 on the 128 lattice.  Fails if a
      kernel never launches, a batch keeps no task, a coverage ratio
      falls outside (0, 1.2], or the read-back differs
+ 12  the generic mesh path and the xla backend: one frame of 4 shirts of
+     the shirt eval set through the generic mesh step (a MeshTopology at
+     detect_mesh_caps' bucket) on the card against the CPU; a BatchSimEnv
+     of the 16 shirts on that bucket at production knobs: reset ->
+     batch_value_maps -> a step of phase 6's kind (18 interpreter steps,
+     16 profiled, then the step's end), launch counters zeroed before and
+     read after; one frame of each xla
+     contact mode (block, sweep, table, sort) with Gauss-Seidel springs
+     on 4 tasks of the hard eval set on the card against the CPU, which
+     must launch no kernel; one sequential shirt task (the generator of
+     the shirt set, python -m flingbot_tpu_torch.generate_sets --sets
+     shirt) at the full schedule from data/shirts, read back.  Fails if
+     the mesh env never launches the contacts kernel, a frame disagrees,
+     or the read-back differs
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -115,7 +136,7 @@ PEAK_BYTES = 3.35e12
 TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
        "contacts.xyz": 2e-6, "substeps_aero.P": 1e-5,
        "substeps_aero.prev": 1e-5, "substeps_aero.V": 4e-3,
-       "contacts_mesh.xyz": 2e-6}
+       "contacts_mesh.xyz": 2e-6, "contacts_mesh_generic.xyz": 2e-6}
 # the launches phase 2 adds hold to the bounds of their kind
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
@@ -138,8 +159,13 @@ SHIRT_TASKS = "data_r3/shirt_eval_16.npz"  # exported task sets
 RECT_TASKS = "data_r3/rect_eval_hard_100.npz"
 EVAL_ENVS, EVAL_LENGTH, EVAL_EPISODES = 16, 2, 16
 ROUND4_CKPT = "runs/round4/latest_ckpt.npz"
-# 3 rounds (4 before phase 10 was added: the script keeps its time)
-TRAIN_ENVS, TRAIN_ROUNDS, TRAIN_BATCH = 64, 3, 128
+# 2 rounds of 1-step episodes at a training batch of 64, both optimizing,
+# then an eval round of 16 envs (4 rounds before phase 10 was added, 3
+# rounds of 2-step episodes at batch 128 and a 64-env eval round before
+# phase 12: the script keeps its time); the layer timings stay at a batch
+# of TRAIN_BATCH
+TRAIN_ENVS, TRAIN_ROUNDS, TRAIN_LENGTH, TRAIN_BATCH = 64, 2, 1, 128
+TRAIN_RUN_BATCH, TRAIN_EVAL_ENVS = 64, 16
 AERO = dict(drag=8.0, lift=4.0, wind=(0.5, 0.0, -0.25))
 ACTION_PRIMS = ("fling", "stretchdrag", "drag", "place")
 # the replay's interpreter steps: drag and place grasp ~210 steps in,
@@ -147,6 +173,10 @@ ACTION_PRIMS = ("fling", "stretchdrag", "drag", "place")
 # 5e-3 m a step
 ACTION_ENVS, ACTION_REPLAY_STEPS = 32, 320
 SMOKE_ENVS = 128
+# phase 12's profile of the generic-mesh env: 16 interpreter steps (64
+# took 137 s on an H100 with host-side tracing, nearly all of it the
+# profiler's own cost of ~3,000 launches a step)
+MESH_PROFILE_STEPS = 16
 # the task generator (phase 11): 32 hard tasks on the 104 lattice, 16
 # large ones (112-127 a side) on the 128 lattice, in one batch each, at
 # the full schedule; the large set's generator batch is 64 (phase 2's
@@ -406,6 +436,7 @@ def phase_kernels(device):
         iterations=8)
     del lP, lV, lw, lout
     rows.update(kernel_mesh(device, err))
+    rows.update(kernel_mesh_generic(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
     frame_check(synthetic_state(P, V, w, valid, picker), topo,
                 SolverParams(**AERO), "compressed synthetic grid, aero",
@@ -420,7 +451,8 @@ def phase_kernels(device):
     bad = {k: v for k, v in err.items() if not v <= TOL[k]}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    if not moved > 0 or not rows["contacts_mesh"]["moved"] > 0:
+    if not moved > 0 or not all(rows[k]["moved"] > 0 for k in (
+            "contacts_mesh", "contacts_mesh_generic")):
         raise AssertionError("contacts fired on no pair")
     return rows
 
@@ -520,11 +552,6 @@ def kernel_mesh(device, err):
     then Morton-sorted with their rest coordinates."""
     import torch
 
-    from flingbot_tpu_torch.engine import collisions, kernels
-    from flingbot_tpu_torch.engine.solver import step
-    from flingbot_tpu_torch.engine.state import SolverParams
-
-    params = SolverParams()
     topo, state = shirt_batch(device)
     P0 = state.positions.clone()
     P0[:, 0] *= 0.4
@@ -532,6 +559,56 @@ def kernel_mesh(device, err):
     P0[:, 1] += 0.01 * torch.sin(P0[:, 0] * 150.0) + 0.02
     state = state.replace(positions=torch.where(state.active[:, None], P0,
                                                 state.positions))
+    row = mesh_contacts_row("contacts_mesh", state, topo, err, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if row["blocks"] < sms:
+        raise AssertionError(f"the shirt path's contacts leave SMs idle "
+                             f"({sms} SMs)")
+    log(f"  shirts: lattice {topo.H}x{topo.W} ({state.num_particles} "
+        f"slots), {len(topo.offsets)} spring classes")
+    return {"contacts_mesh": row}
+
+
+def generic_mesh_batch(device, n=None):
+    """The first n (all) shirts of the shirt eval set through the generic
+    mesh path: a MeshTopology at detect_mesh_caps' bucket."""
+    from flingbot_tpu_torch.env.scene import make_batch, scene_task
+    from flingbot_tpu_torch.env.tasks import TaskLoader, detect_mesh_caps
+
+    path = os.path.join(ROOT, SHIRT_TASKS)
+    caps = detect_mesh_caps(path)
+    loader = TaskLoader(path)
+    n = n or len(loader)
+    topo, state = make_batch([scene_task(loader.get_next_task())
+                              for _ in range(n)], mesh_caps=caps,
+                             device=device)
+    return topo, state, caps
+
+
+def kernel_mesh_generic(device, err):
+    """The mesh mode of the contacts kernel at the generic mesh path's
+    shape: the 16 eval-set shirts (crumpled file states) padded to the
+    bucket's vertex capacity, one mesh frame, Morton-sorted with their
+    rest coordinates."""
+    topo, state, caps = generic_mesh_batch(device)
+    row = mesh_contacts_row("contacts_mesh_generic", state, topo, err,
+                            device)
+    log(f"  generic mesh bucket {caps} (verts, edges, tris): "
+        f"{topo.nbr_idx.shape[1]} incidence slots per vertex")
+    return {"contacts_mesh_generic": row}
+
+
+def mesh_contacts_row(name, state, topo, err, device):
+    """The contacts kernel's mesh mode against its plain version on the
+    Morton-sorted state one frame of `state` leaves behind: max abs error
+    into err, CUDA-event times, the bound and the block count."""
+    import torch
+
+    from flingbot_tpu_torch.engine import collisions, kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    params = SolverParams()
     moved = step(state, topo, params, **SOLVER)
     B, _, N = state.positions.shape
     w = torch.where(state.active, state.inv_mass, 0.0)
@@ -543,65 +620,68 @@ def kernel_mesh(device, err):
     out_k = kernels.contacts(cp, *srt[:7], **kw)
     out_p = kernels.contacts_plain(cp, *srt[:7], **kw)
     torch.cuda.synchronize()
-    err["contacts_mesh.xyz"] = max(float((a - b).abs().max())
-                                   for a, b in zip(out_k, out_p))
+    err[f"{name}.xyz"] = max(float((a - b).abs().max())
+                             for a, b in zip(out_k, out_p))
     shift = max(float((a - b).abs().max()) for a, b in zip(out_k, srt))
     ms_k = cuda_ms(lambda: kernels.contacts(cp, *srt[:7], **kw), 10)
     ms_p = cuda_ms(lambda: kernels.contacts_plain(cp, *srt[:7], **kw), 3)
     n_active = state.active.sum(1).tolist()
     b_ms, b_by = bound(*contacts_work(n_active, N, 12, 4, mesh=True))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if log_tiles("contacts_mesh", B, N, window=12, iterations=4) < sms:
-        raise AssertionError(f"the shirt path's contacts leave SMs idle "
-                             f"({sms} SMs)")
-    log(f"  shirts: lattice {topo.H}x{topo.W} ({N} slots), "
-        f"{len(topo.offsets)} spring classes, {min(n_active)}-"
-        f"{max(n_active)} vertices; mesh contacts moved particles by up "
-        f"to {shift:.3e} m")
-    return {"contacts_mesh": dict(
-        max_abs_err=err["contacts_mesh.xyz"], ms=ms_k, plain_ms=ms_p,
-        bound_ms=b_ms, bound_by=b_by, B=B, moved=shift)}
+    blocks = log_tiles(name, B, N, window=12, iterations=4)
+    log(f"  {name}: {min(n_active)}-{max(n_active)} vertices of {N} "
+        f"slots; mesh contacts moved particles by up to {shift:.3e} m")
+    return dict(max_abs_err=err[f"{name}.xyz"], ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by, B=B, moved=shift,
+                blocks=blocks)
 
 
-def frame_check(state, topo, params, what, ill_conditioned=False):
+def frame_check(state, topo, params, what, ill_conditioned=False, **kw):
     """One solver frame of 4 envs on the card against the plain path on
-    the CPU: max |dP| within FRAME_TOL, coverage to 6 digits.  Beside it,
-    the frame's own conditioning: how far the CPU frame moves when the
-    active positions carry a seeded relative noise of NOISE.  For inputs
-    marked ill_conditioned, where that spread exceeds FRAME_TOL, the card
-    must instead stay within NOISE_FACTOR times the spread."""
+    the CPU: max |dP| within FRAME_TOL, coverage to 6 digits.  For inputs
+    marked ill_conditioned, a frame that misses FRAME_TOL passes if it
+    stays within NOISE_FACTOR times the frame's own spread: how far the
+    CPU frame moves when the active positions carry a seeded relative
+    noise of NOISE; its coverage then within NOISE_FACTOR times the
+    coverage spread that noise makes (the most of any env) beside the 6
+    digits.  kw override the SOLVER step keywords."""
     import torch
 
     from flingbot_tpu_torch.engine.solver import step
     from flingbot_tpu_torch.env.coverage import get_current_covered_area
 
+    kw = dict(SOLVER, **kw)
     sub = torch.arange(min(4, state.batch), device=state.device)
     st4, tp4 = state.index(sub).to("cpu"), topo.index(sub).to("cpu")
-    gpu = step(st4.to(state.device), tp4.to(state.device), params, **SOLVER)
-    cpu = step(st4, tp4, params, **SOLVER)
-    P = st4.positions
-    noisy = P * (1 + NOISE * torch.randn(
-        P.shape, generator=torch.Generator().manual_seed(0)))
-    cpu_n = step(st4.replace(positions=torch.where(st4.active[:, None],
-                                                   noisy, P)),
-                 tp4, params, **SOLVER)
+    gpu = step(st4.to(state.device), tp4.to(state.device), params, **kw)
+    cpu = step(st4, tp4, params, **kw)
     err = float((gpu.positions.cpu() - cpu.positions).abs().max())
-    spread = float((cpu_n.positions - cpu.positions).abs().max())
     cov_g = get_current_covered_area(gpu.positions, gpu.active).cpu()
     cov_c = get_current_covered_area(cpu.positions, cpu.active)
+    tol, cov_tol = FRAME_TOL, 1e-6 * cov_c.abs()
+    note = "inside FRAME_TOL" if err < FRAME_TOL else "outside FRAME_TOL"
+    if ill_conditioned and not err < FRAME_TOL:
+        P = st4.positions
+        noisy = P * (1 + NOISE * torch.randn(
+            P.shape, generator=torch.Generator().manual_seed(0)))
+        cpu_n = step(st4.replace(positions=torch.where(
+            st4.active[:, None], noisy, P)), tp4, params, **kw)
+        spread = float((cpu_n.positions - cpu.positions).abs().max())
+        cov_spread = float((get_current_covered_area(
+            cpu_n.positions, cpu_n.active) - cov_c).abs().max())
+        tol = NOISE_FACTOR * spread
+        cov_tol = cov_tol + NOISE_FACTOR * cov_spread
+        note = (f"the CPU frame moves {spread:.3e} m, its coverage "
+                f"{cov_spread:.3e} m^2, under {NOISE:.0e} relative input "
+                "noise")
     log(f"  one frame, 4 envs ({what}), card vs CPU plain path: max |dP| "
-        f"{err:.3e} m (the CPU frame moves {spread:.3e} m under {NOISE:.0e}"
-        f" relative input noise); coverage {cov_g.tolist()} vs "
+        f"{err:.3e} m ({note}); coverage {cov_g.tolist()} vs "
         f"{cov_c.tolist()}")
-    if ill_conditioned:
-        if not err <= NOISE_FACTOR * spread:
-            raise AssertionError(f"card frame disagrees with the CPU: {err}"
-                                 f" > {NOISE_FACTOR} x {spread}")
-        return gpu
-    if not err < FRAME_TOL:
-        raise AssertionError(f"card frame disagrees with the CPU: {err}")
-    if not torch.allclose(cov_g, cov_c, rtol=1e-6, atol=0.0):
-        raise AssertionError("card coverage disagrees with the CPU")
+    if not (err < FRAME_TOL or err <= tol):
+        raise AssertionError(f"card frame disagrees with the CPU: {err} "
+                             f">= {FRAME_TOL} and > {tol}")
+    if not bool(((cov_g - cov_c).abs() <= cov_tol).all()):
+        raise AssertionError(f"card coverage disagrees with the CPU: "
+                             f"{cov_g.tolist()} vs {cov_c.tolist()}")
     return gpu
 
 
@@ -674,12 +754,17 @@ def phase_slice(device):
     return launches, (env, vm), (state, topo)
 
 
-def drive_path(start, device, kernels_of_path, params=None, **env_kw):
+def drive_path(start, device, kernels_of_path, params=None, steps=None,
+               **env_kw):
     """reset -> batch_value_maps -> step of a BatchSimEnv at production
-    knobs, from start = (state, topo), or from file tasks when start is
-    () and env_kw holds the task source; launch counters zeroed just
-    before and read just after; fails if a kernel of the path never
-    launched."""
+    knobs, from start = (state, topo) or, with start (), from its task
+    source; launch counters zeroed just before and read just after; fails
+    if a kernel of the path never launched or a result is not finite.
+    With `steps`, the step's programs run only 2 + `steps` interpreter
+    steps, the last `steps` profiled (profile_program), before the rest of
+    the step (BatchSimEnv.end_step: post coverage, termination, the next
+    observation, the replay record and reloads): the whole fling of a
+    shirt batch costs 90-120 s of host launches (PERF.md section 5)."""
     import torch
 
     from flingbot_tpu_torch.engine import kernels
@@ -702,7 +787,15 @@ def drive_path(start, device, kernels_of_path, params=None, **env_kw):
     s_reset = lap()
     vm = policy.batch_value_maps(obs)
     s_policy = lap()
-    obs = env.step(vm)
+    if steps is None:
+        obs = env.step(vm)
+        what = "step"
+    else:
+        begun, carry = profile_program(env, vm, steps)
+        if not bool(torch.isfinite(carry.state.positions).all()):
+            raise AssertionError("non-finite positions after the profile")
+        obs = env.end_step(begun, carry, 2)
+        what = f"{steps + 2} interpreter steps and the step's end"
     s_step = lap()
     launches = dict(kernels.LAUNCHES)
 
@@ -718,11 +811,10 @@ def drive_path(start, device, kernels_of_path, params=None, **env_kw):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"non-finite {name}")
     pre, post = last.pre_coverage.cpu(), last.post_coverage.cpu()
-    steps = last.sim_steps.cpu().float()
-    log(f"  reset {s_reset:.2f} s, value maps {s_policy:.2f} s, step "
-        f"{s_step:.2f} s ({last.chunks} chunks of {env.chunk_steps} "
-        f"interpreter steps)")
-    log(f"  sim steps per env: mean {steps.mean():.1f} max {steps.max():.0f}")
+    sim = last.sim_steps.cpu().float()
+    log(f"  reset {s_reset:.2f} s, value maps {s_policy:.2f} s, {what} "
+        f"{s_step:.2f} s ({last.chunks} chunks)")
+    log(f"  sim steps per env: mean {sim.mean():.1f} max {sim.max():.0f}")
     log(f"  coverage m^2: pre mean {pre.mean():.5f} min {pre.min():.5f} "
         f"max {pre.max():.5f}; post mean {post.mean():.5f} min "
         f"{post.min():.5f} max {post.max():.5f}; grasped "
@@ -739,8 +831,9 @@ def drive_path(start, device, kernels_of_path, params=None, **env_kw):
 
 def phase_shirts(device):
     """The shirt path: the 16 shirts of the shirt eval set, read through
-    TaskLoader and detect_topology_buckets, through the fling; then a
-    profile of 16 interpreter steps."""
+    TaskLoader and detect_topology_buckets: reset, value maps, 18
+    interpreter steps of their fling (16 profiled) and the step's end
+    (drive_path)."""
     import torch
 
     from flingbot_tpu_torch.engine.state import SolverParams
@@ -758,8 +851,8 @@ def phase_shirts(device):
         f"{len(spec.offsets)} spring classes")
     env_kw = dict(get_task_fn=loader.get_next_task, num_envs=len(loader),
                   **buckets)
-    launches, env, vm = drive_path((), device, ("contacts_mesh",),
-                                   **env_kw)
+    launches, env, _ = drive_path((), device, ("contacts_mesh",),
+                                  steps=16, **env_kw)
     params = SolverParams()
     # one frame of 4 of these shirts from their file states on the card
     # against the CPU: dense contacts in the crumpled file states make
@@ -776,7 +869,6 @@ def phase_shirts(device):
     state = crumple(state, topo, params, torch.Generator().manual_seed(0),
                     SOLVER)
     frame_check(state, topo, params, "crumpled OBJ shirts")
-    phase_profile(env, vm)
     return launches
 
 
@@ -888,8 +980,9 @@ def phase_train(device):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         policy, history = run_sim.main(common + [
-            "--log", log_dir, "--load", ckpt0, "--episode_length", "2",
-            "--warmup", "0", "--batch_size", str(TRAIN_BATCH),
+            "--log", log_dir, "--load", ckpt0, "--episode_length",
+            str(TRAIN_LENGTH),
+            "--warmup", "0", "--batch_size", str(TRAIN_RUN_BATCH),
             "--batches_per_update", "2", "--dihedral_augment"],
             max_rounds=TRAIN_ROUNDS)
         seconds = time.perf_counter() - t0
@@ -955,7 +1048,8 @@ def phase_train(device):
         # one --eval round from the saved checkpoint
         t0 = time.perf_counter()
         run_sim.main(common + ["--log", log_dir, "--eval", "--load", ckpt,
-                               "--episode_length", "1"], max_rounds=1)
+                               "--episode_length", "1", "--num_envs",
+                               str(TRAIN_EVAL_ENVS)], max_rounds=1)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         replay = os.path.join(log_dir, "latest_ckpt_eval_0", "replay_buffer")
@@ -963,7 +1057,7 @@ def phase_train(device):
         log(f"  eval round: {n_eval} episodes in {replay} in "
             f"{time.perf_counter() - t0:.2f} s; launches in the phase "
             f"{launches}")
-        if n_eval != TRAIN_ENVS:
+        if n_eval != TRAIN_EVAL_ENVS:
             raise AssertionError(f"the eval round wrote {n_eval} episodes")
     for name in ("substeps", "contacts"):
         if launches[name] <= 0:
@@ -1241,6 +1335,83 @@ def phase_generate(device):
     return launches
 
 
+def phase_generic_mesh(device):
+    """The generic mesh path and the xla backend (see the module
+    docstring, phase 12).  Returns the contacts kernel's launches on the
+    generic-mesh env's drive."""
+    import random
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.engine.topology import MeshTopology
+    from flingbot_tpu_torch.env import tasks
+    from flingbot_tpu_torch.env.coverage import get_current_covered_area
+    from flingbot_tpu_torch.env.scene import make_batch, scene_task
+
+    params = SolverParams()
+    t0 = time.perf_counter()
+    topo, state, caps = generic_mesh_batch(device, 4)
+    frame_check(state, topo, params, "generic-mesh eval-set shirts",
+                ill_conditioned=True)
+    log(f"  generic-mesh frame check: {time.perf_counter() - t0:.2f} s")
+    loader = tasks.TaskLoader(os.path.join(ROOT, SHIRT_TASKS))
+    launches, env, _ = drive_path(
+        (), device, ("contacts_mesh",), steps=MESH_PROFILE_STEPS,
+        get_task_fn=loader.get_next_task, num_envs=len(loader),
+        mesh_caps=caps)
+    if not isinstance(env.topo, MeshTopology):
+        raise AssertionError("the mesh_caps env is not on the mesh path")
+
+    # the xla backend's contact modes with Gauss-Seidel springs
+    rect = tasks.TaskLoader(os.path.join(ROOT, RECT_TASKS))
+    topo, state = make_batch([scene_task(rect.get_next_task())
+                              for _ in range(4)], device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for mode in ("block", "sweep", "table", "sort"):
+        t0 = time.perf_counter()
+        frame_check(state, topo, params, f"xla backend, gs springs, {mode} "
+                    "contacts, hard eval-set tasks", ill_conditioned=True,
+                    backend="xla", contact_mode=mode, spring_mode="gs")
+        log(f"  xla {mode}: frame check in {time.perf_counter() - t0:.2f} s")
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"the xla backend launched a kernel: "
+                             f"{kernels.LAUNCHES}")
+
+    # one sequential shirt task, as the shirt set makes them
+    with tempfile.TemporaryDirectory(suffix="_shirt") as out:
+        path = os.path.join(out, "shirt.npz")
+        random.seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tasks.generate_tasks(
+            path, 1, seed=500, task_difficulty="hard", cloth_type="mesh",
+            cloth_mesh_path=os.path.join(ROOT, "data", "shirts"),
+            params=SolverParams(dynamic_friction=tasks.GEN_FRICTION),
+            device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        task = tasks.TaskLoader(path).get_next_task()
+        seq_caps = tasks.detect_mesh_caps(path)
+        _, st = make_batch([scene_task(task)], mesh_caps=seq_caps,
+                           device=device)
+        cov = float(get_current_covered_area(st.positions, st.active)[0])
+        ratio = task.initial_coverage / task.flatten_area
+        log(f"  one sequential shirt task ({task.mesh_verts.size // 3} "
+            f"vertices, bucket {seq_caps}) in {seconds:.2f} s: coverage "
+            f"{task.initial_coverage:.5f} m^2, ratio {ratio:.4f}")
+        if not (0 < ratio <= MAX_RATIO and np.float32(cov)
+                == np.float32(task.initial_coverage)
+                and bool(torch.isfinite(st.positions).all())):
+            raise AssertionError("the sequential shirt task's read-back "
+                                 "differs")
+    return launches["contacts_mesh"]
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
     and wind set, through the one-substep launches; first one frame of 4
@@ -1263,45 +1434,49 @@ def phase_aero(state, topo, device):
 
 def phase_profile(env, vm, steps: int = 16):
     """torch.profiler over `steps` interpreter steps of a fresh fling
-    program on the main path's envs."""
+    program on the main path's envs (the env is left as it was)."""
+    profile_program(env, vm, steps)
+
+
+def profile_program(env, vm, steps: int):
+    """The programs value maps vm select on env (BatchSimEnv.begin_step),
+    run 2 interpreter steps, then `steps` under torch.profiler
+    (profile_steps) -> (the step's start, the carry after them)."""
     import torch
 
-    from flingbot_tpu_torch.env.primitives import (
-        STABLE_MAX_STEPS, program_chunk)
-    from flingbot_tpu_torch.env.sim_env import step_begin
-
-    _, _, _, carry, prog = step_begin(env.state, vm, env.obs, env.rotations,
-                                      env.prim_cfg, env.pix_grasp_dist)
-    kw = dict(max_steps=env.prim_cfg.max_program_steps + STABLE_MAX_STEPS,
-              sim_kw=env.sim_kw)
-    carry, _ = program_chunk(carry, env.topo, env.params, prog,
-                             chunk_steps=2, **kw)
+    begun = env.begin_step(vm)
+    carry, _ = env.run_program(begun, begun.carry, 2)
     torch.cuda.synchronize()
-    profile_steps(lambda: program_chunk(carry, env.topo, env.params, prog,
-                                        chunk_steps=steps, **kw),
-                  steps, f"{steps} interpreter steps at B={env.state.batch}")
+    carry, _ = profile_steps(
+        lambda: env.run_program(begun, carry, steps), steps,
+        f"{steps} interpreter steps at B={env.state.batch}")
+    return begun, carry
 
 
 def profile_steps(fn, steps: int, what: str):
     """torch.profiler over fn(), which runs `steps` steps: wall and device
     time per step, the port's kernels' share of it, the device's busy
-    share, and the device kernels that take the most time."""
+    share, and the device kernels that take the most time.  Returns what
+    fn returns.  Only the device is traced: host-side op records cost
+    ~2 s of processing a step at the ~3,000 launches of a mesh step, and
+    slow the host they measure."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: an aten op's own entry repeats the time of
-    # the kernels it launched
+    # device-side events only (the runtime API's entries have no device
+    # time)
     dev = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                             getattr(e, "self_cuda_time_total", 0))
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    if not events:
+        raise AssertionError(f"{what}: the profiler saw no device time")
     total = sum(dev(e) for e in events) / 1e3  # ms
     ours = sum(dev(e) for e in events
                if "substeps_kernel" in e.key or "contacts_kernel" in e.key)
@@ -1312,6 +1487,7 @@ def profile_steps(fn, steps: int, what: str):
     for e in sorted(events, key=dev, reverse=True)[:8]:
         log(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
             f" launches/step  {e.key[:70]}")
+    return out
 
 
 def main():
@@ -1349,6 +1525,8 @@ def main():
         action = phase_action_space(device)
     with Phase("11 task generation"):
         gen = phase_generate(device)
+    with Phase("12 generic mesh path, xla backend"):
+        launches["contacts_mesh_generic"] = phase_generic_mesh(device)
     for name in ("substeps", "contacts"):
         launches[name] += train[name] + action[name] + gen.pop(name)
     launches["substeps_jacobi"] = jacobi_launches
@@ -1362,6 +1540,10 @@ def main():
         # the rest-pose filter of _contacts_kernel's mesh mode
         "contacts_mesh": ("flingbot_tpu_torch/csrc/contacts.cu",
                           "flingbot_tpu/engine/pallas_kernels.py:442"),
+        # the same mode on the generic mesh path (_step_mesh's contact
+        # group, flingbot_tpu/engine/solver.py:830-836)
+        "contacts_mesh_generic": ("flingbot_tpu_torch/csrc/contacts.cu",
+                                  "flingbot_tpu/engine/pallas_kernels.py:442"),
         # the one-substep launches of the aero loop
         "substeps_aero": ("flingbot_tpu_torch/csrc/substeps.cu",
                           "flingbot_tpu/engine/solver.py:637"),
@@ -1376,7 +1558,8 @@ def main():
     table = []
     for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero",
                  "substeps_jacobi", "substeps_gen", "contacts_gen",
-                 "substeps_gen128", "contacts_gen128"):
+                 "substeps_gen128", "contacts_gen128",
+                 "contacts_mesh_generic"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -12,7 +12,14 @@ at first use and bound with `ctypes` (engine/kernels.py).
 Hot arrays are batched and component-leading: cloth state is kept in
 LATTICE order, positions (B, 3, H*W) with slot index y * W + x, so the
 physics step never converts layouts (the JAX package converts canonical
-(N, 3) state to a (3, H, W) lattice and back every step).
+(N, 3) state to a (3, H, W) lattice and back every step); generic meshes
+keep vertex order, (B, 3, N).
+
+Every solver mode of the JAX package is here: the pallas backend (the
+kernels) and the xla backend (plain PyTorch, launching no kernel) with
+every spring mode and contact mode, on grid cloths, layered shirts and
+generic meshes, and both task generators.  One flag is still refused:
+--dump_visualizations (ROADMAP Queue 1 item 7).
 
 Entry points run on the card (`device="cuda"`) and raise when CUDA is
 absent; they run on the CPU only when the caller passes `device="cpu"`.

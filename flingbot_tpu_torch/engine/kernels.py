@@ -283,7 +283,13 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
     k = 1..window, SelfCollideFilter (lattice neighbours, or rest-pose
     distance under rest_dist in mesh mode), PBD Coulomb particle friction
     against the substep's relative motion, mass-share split, Jacobi
-    average by contact count, then the ground plane."""
+    average by contact count, then the ground plane.
+
+    Two roles: the reference the kernel is held to, and, under
+    backend="xla" (collisions.contact_group), the counterpart of the JAX
+    package's XLA code _contacts_sorted_flat on every device.  That is
+    not a fallback from the kernel: the xla backend launches no kernel,
+    and `contacts` never takes this path for a CUDA tensor."""
     B, n = X.shape
     col = lambda k: cparams[:, k].view(B, 1)  # noqa: E731
     rest_d, w_uni, mu_p, mu_plane, coldist = (col(k) for k in range(5))

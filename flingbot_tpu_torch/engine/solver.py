@@ -1,23 +1,39 @@
-"""XPBD cloth step (counterpart of flingbot_tpu/engine/solver.py on its
-pallas backend: Chebyshev-accelerated or plain Jacobi springs, sorted-window
-contacts or none), for grid cloths and layered-lattice shirts.
+"""XPBD cloth step (counterpart of flingbot_tpu/engine/solver.py): grid
+cloths, layered-lattice shirts and generic meshes, on the pallas backend
+(the port's CUDA kernels) or the xla backend (plain PyTorch).
 
-Grid cloths: plain PyTorch functions on batched lattices, P (B, 3, H, W).
-The hot loop runs in the two CUDA kernels of engine/kernels.py; the
-functions here are the pieces of their plain versions and the glue between
-launches.  One frame = `substeps` substeps in groups of `contact_every`.  A
-group is one `kernels.substeps` launch (integrate -> springs + plane
-iterations -> speed-up-only velocity clamp -> picker push, the last picker
-push deferred), then one contact group: contacts -> plane -> velocity add
-under the same clamp -> picker push (the pallas ordering of
-_step_grid_pallas, solver.py:571-660).  Without self-collision, one
-launch of all substeps.  With drag or lift set, one launch per substep
-with the aero kick between launches (solver.py:617-644).
+Grid cloths, pallas backend: plain PyTorch functions on batched lattices,
+P (B, 3, H, W).  The hot loop runs in the two CUDA kernels of
+engine/kernels.py; the functions here are the pieces of their plain
+versions and the glue between launches.  One frame = `substeps` substeps
+in groups of `contact_every`.  A group is one `kernels.substeps` launch
+(integrate -> springs + plane iterations -> speed-up-only velocity clamp
+-> picker push, the last picker push deferred), then one contact group:
+contacts -> plane -> velocity add under the same clamp -> picker push (the
+pallas ordering of _step_grid_pallas, solver.py:571-660).  Without
+self-collision, one launch of all substeps.  With drag or lift set, one
+launch per substep with the aero kick between launches
+(solver.py:617-644).
 
-Layered shirts: flat state P (B, 3, N) on the layered lattice; the spring
-solve gathers every offset class at once through a neighbour table, and
-the contact groups run the contacts kernel in mesh mode (_step_layered,
-solver.py:751-806).
+Every other step is the substep loop of _run_substeps / _substep
+(solver.py:395-491) in plain PyTorch: gravity -> aero -> damping ->
+predict -> spring iterations with the plane -> velocity finalize under
+the clamp -> (every `contact_every`-th substep) a contact pass -> plane ->
+velocity add under the clamp -> picker push with friction against the
+substep's entry positions.
+  * layered shirts (_step_layered, solver.py:751-806): flat state
+    (B, 3, N) on the layered lattice, every offset class gathered at once;
+    the contact group runs the contacts kernel in mesh mode (pallas) or
+    its plain version (xla);
+  * generic meshes (_step_mesh, solver.py:809-885): the vertex-centric
+    incidence tables of a MeshTopology; any contact mode;
+  * grid cloths on the xla backend (_step_grid, solver.py:687-748): the
+    six stencil classes as shifted lattices, 2-colour Gauss-Seidel for
+    spring_mode "gs", Jacobi for "jacobi" and "chebyshev"; any contact
+    mode.  The xla backend is the plain counterpart of the JAX package's
+    kernel-free backend: it launches no kernel on any device.
+Springs are Chebyshev-accelerated for "chebyshev", and on meshes and
+layered shirts for "gs" too (solver.py:737, 800, 878).
 """
 
 from __future__ import annotations
@@ -26,12 +42,13 @@ import numpy as np
 import torch
 
 from flingbot_tpu_torch.engine import aero, collisions, kernels
+from flingbot_tpu_torch.engine.collisions import solve_plane
 from flingbot_tpu_torch.engine.picker import (
     DEFAULT_PICKER_RADIUS as PICKER_RADIUS)
-from flingbot_tpu_torch.engine.state import ClothState, SolverParams
+from flingbot_tpu_torch.engine.state import ClothState, SolverParams, f32
 from flingbot_tpu_torch.engine.topology import (
-    GRID_STENCIL_CLASSES, GridTopology, LayeredGridTopology, lattice_valid,
-    layered_neighbours, shift2d)
+    GRID_STENCIL_CLASSES, GridTopology, LayeredGridTopology, MeshTopology,
+    lattice_valid, layered_neighbours, shift2d)
 
 _EPS = 1e-9
 CHEBYSHEV_DELAY = 2  # plain Jacobi warm-up iterations
@@ -133,26 +150,13 @@ def spring_loop(P, iterate_fn, iterations: int, plane_fn, rho2=None):
 # ground plane, picker spheres, velocity finalize
 # --------------------------------------------------------------------------
 
-def solve_plane(P, prev, coldist, mu, moving):
-    """Ground plane y >= collision_distance with PBD Coulomb friction
-    (solve_plane, solver.py:329).  P, prev (B, 3, ...); moving (B, ...)."""
-    pen = coldist - P[:, 1]
-    contact = (pen > 0) & moving
-    dy = torch.where(contact, pen, 0.0)
-    dx_ = P[:, 0] - prev[:, 0]
-    dz_ = P[:, 2] - prev[:, 2]
-    t_norm = torch.sqrt(dx_ * dx_ + dz_ * dz_ + _EPS)
-    scale = torch.clamp(mu * torch.clamp(pen, min=0.0) / t_norm, max=1.0)
-    f = torch.where(contact, scale, 0.0)
-    return torch.stack([P[:, 0] - dx_ * f, P[:, 1] + dy, P[:, 2] - dz_ * f],
-                       1)
-
-
-def solve_picker_spheres(P, picker_pos, R, moving):
-    """Push particles out of the gripper spheres, position only
-    (solve_picker_spheres, solver.py:346; no picker friction).
-    P (B, 3, ...); picker_pos (B, K, 3); R = radius + collision
-    distance.  Every sphere pushes from the same P."""
+def solve_picker_spheres(P, picker_pos, R, moving, prev=None, mu=0.0):
+    """Push particles out of the gripper spheres (solve_picker_spheres,
+    solver.py:346-388).  P (B, 3, ...); picker_pos (B, K, 3); R = radius +
+    collision distance.  Every sphere pushes from the same P.  With `prev`
+    (the substep's entry positions) and picker friction mu > 0, each
+    contact also removes the tangential slip P - prev up to mu times its
+    penetration; mu = 0 is the position-only push."""
     tail = (1,) * (P.dim() - 2)
     delta = torch.zeros_like(P)
     for k in range(picker_pos.shape[1]):
@@ -160,8 +164,20 @@ def solve_picker_spheres(P, picker_pos, R, moving):
         dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
                           + d[:, 2] * d[:, 2] + _EPS)
         pen = R - dist
-        push = torch.where((pen > 0) & moving, pen / dist, 0.0)
+        contact = (pen > 0) & moving
+        push = torch.where(contact, pen / dist, 0.0)
         delta = delta + d * push[:, None]
+        if prev is not None and mu != 0.0:
+            slip = P - prev
+            n = d / dist[:, None]
+            sn = (slip[:, 0] * n[:, 0] + slip[:, 1] * n[:, 1]
+                  + slip[:, 2] * n[:, 2])
+            t = slip - sn[:, None] * n
+            t_norm = torch.sqrt(t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
+                                + t[:, 2] * t[:, 2] + _EPS)
+            scale = torch.clamp(mu * torch.clamp(pen, min=0.0) / t_norm,
+                                max=1.0)
+            delta = delta - t * torch.where(contact, scale, 0.0)[:, None]
     return P + delta
 
 
@@ -266,35 +282,63 @@ def _aero_on(params: SolverParams) -> bool:
 
 
 SPRING_MODES = ("chebyshev", "gs", "jacobi")
+CONTACT_MODES = ("sort", "sweep", "block", "table")
+BACKENDS = ("pallas", "xla")
 
 
 def step(state: ClothState, topo, params: SolverParams, *,
          substeps: int = 4, iterations: int = 16, contact_every: int = 2,
          contact_iterations: int = 4, contact_window: int = 12,
-         spring_mode: str = "chebyshev",
-         self_collision: bool = True) -> ClothState:
+         spring_mode: str = "chebyshev", self_collision: bool = True,
+         backend: str = "pallas", contact_mode: str = "sort",
+         resort_interval: int = 4) -> ClothState:
     """Advance every env one frame: dt split into `substeps` substeps of
-    `iterations` spring iterations, self-collision every `contact_every`
-    substeps (solver.step(backend="pallas", contact_mode="sort")).
-    spring_mode "chebyshev" (or "gs", which the pallas backend maps to
-    it) accelerates the Jacobi iterations; "jacobi" runs them plain
-    (solver.py:593).  self_collision=False runs no contact group.
-    Dispatches on the topology as solver.py:529-550 does: grid cloths,
-    layered shirts."""
+    `iterations` spring iterations, self-collision after every
+    `contact_every`-th substep (solver.step, solver.py:494-548, with the
+    production knobs as defaults: backend "pallas", contact_mode "sort").
+    spring_mode "chebyshev" accelerates the Jacobi iterations, "jacobi"
+    runs them plain, and "gs" is Chebyshev on the pallas backend, on
+    meshes and on layered shirts, and 2-colour Gauss-Seidel on grids on
+    the xla backend.  contact_mode: "sort" (a fresh Morton sort per
+    contact pass; the only mode of the pallas grid step and of layered
+    shirts), "sweep" / "block" (a Morton order cached in the state and
+    re-sorted where step_count % resort_interval == 0) or "table" (a
+    hash-grid neighbour table).  self_collision=False runs no contact
+    pass.  Dispatches on the topology; every env's time and step_count
+    advance."""
     if spring_mode not in SPRING_MODES:
         raise ValueError(f"unknown spring_mode {spring_mode!r}")
-    if self_collision and substeps % contact_every:
-        raise ValueError("substeps must be divisible by contact_every")
+    if contact_mode not in CONTACT_MODES:
+        raise ValueError(f"unknown contact_mode {contact_mode!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
     kw = dict(substeps=substeps, iterations=iterations,
               contact_every=contact_every,
               contact_iterations=contact_iterations,
-              contact_window=contact_window,
-              cheb=spring_mode != "jacobi", self_collision=self_collision)
-    if isinstance(topo, GridTopology):
-        return _step_grid(state, topo, params, **kw)
-    if isinstance(topo, LayeredGridTopology):
-        return _step_layered(state, topo, params, **kw)
-    raise TypeError(f"no solver step for {type(topo).__name__}")
+              contact_window=contact_window, self_collision=self_collision)
+    if isinstance(topo, GridTopology) and backend == "pallas":
+        if self_collision and substeps % contact_every:
+            raise ValueError("substeps must be divisible by contact_every")
+        out = _step_grid(state, topo, params, cheb=spring_mode != "jacobi",
+                         **kw)
+    elif isinstance(topo, GridTopology):
+        out = _step_grid_xla(state, topo, params, spring_mode=spring_mode,
+                             contact_mode=contact_mode,
+                             resort_interval=resort_interval, **kw)
+    elif isinstance(topo, LayeredGridTopology):
+        if self_collision and contact_mode != "sort":
+            raise ValueError("layered topology supports contact_mode='sort' "
+                             f"only (got {contact_mode!r})")
+        out = _step_layered(state, topo, params, spring_mode=spring_mode,
+                            backend=backend, **kw)
+    elif isinstance(topo, MeshTopology):
+        out = _step_mesh(state, topo, params, spring_mode=spring_mode,
+                         backend=backend, contact_mode=contact_mode,
+                         resort_interval=resort_interval, **kw)
+    else:
+        raise TypeError(f"no solver step for {type(topo).__name__}")
+    return out.replace(time=state.time + f32(params.dt),
+                       step_count=state.step_count + 1)
 
 
 def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
@@ -364,7 +408,8 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
 
 
 # --------------------------------------------------------------------------
-# layered shirts (_step_layered, solver.py:751-806)
+# the substep loop of the xla backend, layered shirts and meshes
+# (_substep / _run_substeps, solver.py:395-491)
 # --------------------------------------------------------------------------
 
 def layered_spring_planes(w, topo: LayeredGridTopology):
@@ -428,61 +473,349 @@ def finalize_velocity(P, V, prev, dt, dv_max, moving):
     return torch.where(moving[:, None], V + dv * scale[:, None], V)
 
 
-def _step_layered(state, topo, params, *, substeps, iterations,
-                  contact_every, contact_iterations, contact_window, cheb,
-                  self_collision):
-    """Layered-lattice shirt step (_step_layered + _run_substeps +
-    _substep, solver.py:395-487,751-806) on flat (B, 3, N) state.  Each
-    substep: integrate -> springs + plane (Chebyshev, or plain Jacobi
-    without cheb) -> velocity finalize -> (with self-collision, every
-    `contact_every`-th substep) contact group in mesh mode -> plane ->
-    velocity add under the clamp; then the picker push, after every
-    substep (position only: picker_friction = 0, as in production)."""
-    if _aero_on(params):
-        # layered aero needs the mesh normals' scatter-add (aero.py:43-69),
-        # which the port does not have yet
-        raise NotImplementedError(
-            "drag / lift on layered shirts: aero is ported for grid cloths "
-            "only")
-    if params.picker_friction != 0.0:
-        # the JAX layered path applies picker friction against the
-        # substep's entry positions (solver.py:486-487); the port has the
-        # production push only
-        raise NotImplementedError(
-            "picker_friction on layered shirts is not ported")
-    P, V = state.positions, state.velocities
-    w = torch.where(state.active, state.inv_mass, 0.0)
-    moving = state.active & (w > 0)
+def _run_substeps(P, V, w, moving, params: SolverParams, picker_pos, *,
+                  substeps, iterations, solve_fn, contact_fn, contact_every,
+                  chebyshev, normals_fn=None):
+    """`substeps` XPBD substeps on P, V (B, 3, ...) with inverse masses and
+    the moving mask (B, ...).  Each: gravity, the aero kick (normals_fn)
+    on the post-gravity velocity, damping, predict; `iterations` spring
+    passes solve_fn, each followed by the plane (Chebyshev-accelerated
+    with `chebyshev`); velocity finalize under the speed-up-only clamp;
+    after every contact_every-th substep, contact_fn(P, prev) -> plane ->
+    velocity add under the same clamp; then the picker push with picker
+    friction against the substep's entry positions."""
     mm = moving[:, None]
-    f = np.float32
-    dt = f(params.dt) / f(substeps)
-    dv_max = f(params.max_acceleration) * dt
-    damp = float(max(f(0.0), f(1.0) - f(params.damping) * dt))
+    dt = f32(params.dt) / np.float32(substeps)
+    dv_max = float(np.float32(params.max_acceleration) * dt)
+    damp = float(max(np.float32(0.0), np.float32(1.0)
+                     - np.float32(params.damping) * dt))
     g_dt = dt * torch.tensor(params.gravity, dtype=torch.float32,
-                             device=P.device).view(1, 3, 1)
-    rho2 = f(params.chebyshev_rho) * f(params.chebyshev_rho) if cheb \
-        else None
-    R = float(f(PICKER_RADIUS) + f(params.collision_distance))
-    planes = layered_spring_planes(w, topo)
+                             device=P.device).view(
+                                 (1, 3) + (1,) * (P.dim() - 2))
+    rho2 = np.float32(params.chebyshev_rho) * np.float32(
+        params.chebyshev_rho) if chebyshev else None
+    R = float(np.float32(PICKER_RADIUS) + np.float32(
+        params.collision_distance))
     dt_t = _per_dt(dt, P)
-    relax = float(f(params.relaxation_factor))
+
+    def plane(Q, prev):
+        return solve_plane(Q, prev, params.collision_distance,
+                           params.dynamic_friction, moving)
+
     for i in range(substeps):
-        V = torch.where(mm, (V + g_dt) * damp, 0.0)
+        P_in = P
+        V = V + g_dt
+        if normals_fn is not None:
+            V = V + float(dt) * aero.aero_accel(V, normals_fn(P), params,
+                                                moving)
+        V = torch.where(mm, V * damp, 0.0)
         prev = P
         P = torch.where(mm, P + float(dt) * V, P)
-        P = spring_loop(
-            P, lambda Q: solve_springs_layered(Q, w, planes, relax),
-            iterations,
-            lambda Q: solve_plane(Q, prev, params.collision_distance,
-                                  params.dynamic_friction, moving), rho2)
-        V = finalize_velocity(P, V, prev, dt_t, float(dv_max), moving)
-        if self_collision and (i + 1) % contact_every == 0:
-            P2 = collisions.contact_group(
-                P, prev, w, state.active, params, rest_dist=params.radius,
-                rest_positions=topo.rest_positions, window=contact_window,
-                iterations=contact_iterations)
-            P2 = solve_plane(P2, prev, params.collision_distance,
-                             params.dynamic_friction, moving)
-            P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
-        P = solve_picker_spheres(P, state.picker_pos, R, moving)
+        P = spring_loop(P, solve_fn, iterations,
+                        lambda Q: plane(Q, prev), rho2)
+        V = finalize_velocity(P, V, prev, dt_t, dv_max, moving)
+        if contact_fn is not None and (i + 1) % contact_every == 0:
+            P2 = plane(contact_fn(P, prev), prev)
+            P, V = add_delta_clamped(P, P2, V, dt_t, dv_max, moving)
+        P = solve_picker_spheres(P, picker_pos, R, moving, prev=P_in,
+                                 mu=params.picker_friction)
+    return P, V
+
+
+def cached_sweep_order(state: ClothState, P, participate, radius,
+                       resort_interval: int):
+    """The Morton order of the sweep and block modes, re-sorted per env
+    (_cached_sweep_order, solver.py:553-568): envs whose step_count is a
+    multiple of resort_interval take the fresh order of P (B, 3, N), the
+    others keep the one cached in the state."""
+    perm, inv = collisions.sweep_order(P, participate, radius)
+    need = (state.step_count % resort_interval == 0)[:, None]
+    return (torch.where(need, perm, state.sweep_perm),
+            torch.where(need, inv, state.sweep_inv))
+
+
+def _cached_contacts(state, P, w, moving, participate, params, mode,
+                     contact_iterations, resort_interval, lattice_w=None,
+                     rest_positions=None):
+    """The contact pass of the sweep and block modes on flat (B, 3, N)
+    arrays, over the step's cached Morton order.  Returns (contact_fn,
+    perm, inv_perm)."""
+    perm, inv = cached_sweep_order(state, P, participate, params.radius,
+                                   resort_interval)
+    rest_sorted = None if rest_positions is None else \
+        collisions._take(rest_positions, perm)
+    if mode == "block":
+        ctx = collisions.BlockContactContext(
+            perm, inv, w, participate, moving, params, params.radius,
+            lattice_w=lattice_w, rest_sorted=rest_sorted)
+        return (lambda Q, prev: collisions.solve_contacts_block(
+            Q, w, moving, perm, inv, params, rest_dist=params.radius,
+            prev=prev, iterations=contact_iterations, ctx=ctx)), perm, inv
+    return (lambda Q, prev: collisions.solve_contacts_sweep(
+        Q, w, moving, perm, inv, params, rest_dist=params.radius,
+        lattice_w=lattice_w, rest_sorted=rest_sorted, active=participate,
+        prev=prev)), perm, inv
+
+
+def _sorted_mesh_contacts(state, topo, params, w, window, iterations,
+                          backend):
+    """The sorted contact group in mesh mode (rest-pose filter against
+    topo.rest_positions) of the layered and generic mesh steps, as a
+    contact_fn(Q, prev) of _run_substeps."""
+    def contact_fn(Q, prev):
+        return collisions.contact_group(
+            Q, prev, w, state.active, params, rest_dist=params.radius,
+            rest_positions=topo.rest_positions, window=window,
+            iterations=iterations, backend=backend)
+    return contact_fn
+
+
+def _mesh_normals_fn(state, topo, params):
+    """normals_fn(Q) of _run_substeps through the mesh normals of topo's
+    triangles, or None where the aero pass is off."""
+    if not _aero_on(params):
+        return None
+    return lambda Q: aero.mesh_normals(Q, topo.triangles, topo.tri_mask,
+                                       state.active, topo.vert_tri,
+                                       topo.vert_tri_mask)
+
+
+# --------------------------------------------------------------------------
+# layered shirts (_step_layered, solver.py:751-806)
+# --------------------------------------------------------------------------
+
+def _step_layered(state, topo, params, *, substeps, iterations,
+                  contact_every, contact_iterations, contact_window,
+                  spring_mode, self_collision, backend):
+    """Layered-lattice shirt step on flat (B, 3, N) state: the stencil
+    springs of solve_springs_layered in the substep loop, the sorted
+    contact group in mesh mode (the contacts kernel on the pallas backend,
+    its plain version on the xla one), the aero kick through the mesh
+    normals of the layered triangles, picker friction."""
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    moving = state.active & (w > 0)
+    planes = layered_spring_planes(w, topo)
+    relax = float(f32(params.relaxation_factor))
+    contact_fn = _sorted_mesh_contacts(
+        state, topo, params, w, contact_window, contact_iterations,
+        backend) if self_collision else None
+    P, V = _run_substeps(
+        state.positions, state.velocities, w, moving, params,
+        state.picker_pos, substeps=substeps, iterations=iterations,
+        solve_fn=lambda Q: solve_springs_layered(Q, w, planes, relax),
+        contact_fn=contact_fn, contact_every=contact_every,
+        chebyshev=spring_mode != "jacobi",
+        normals_fn=_mesh_normals_fn(state, topo, params))
     return state.replace(positions=P, velocities=V)
+
+
+# --------------------------------------------------------------------------
+# generic meshes (_step_mesh, solver.py:809-885)
+# --------------------------------------------------------------------------
+
+def solve_springs_mesh(P, w, topo: MeshTopology, relax):
+    """One Jacobi pass with local relaxation over a mesh's springs, vertex
+    by vertex (solve_springs_mesh, solver.py:276-297): every vertex pulls
+    its <= D incident neighbours through the incidence tables and sums its
+    own corrections; the sum divides by its degree.  P (B, 3, N); w
+    (B, N)."""
+    B, _, N = P.shape
+    D = topo.nbr_idx.shape[1]
+    flat = topo.nbr_idx.reshape(B, 1, D * N)
+    pn = torch.gather(P, 2, flat.expand(B, 3, D * N)).view(B, 3, D, N)
+    wn = torch.gather(w, 1, flat[:, 0]).view(B, D, N)
+    d = pn - P[:, :, None]
+    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                      + d[:, 2] * d[:, 2] + _EPS)
+    C = dist - topo.nbr_rest
+    wsum = w[:, None] + wn
+    s = torch.where(topo.nbr_mask & (wsum > 0),
+                    topo.nbr_stiff * C / ((wsum + _EPS) * dist), 0.0)
+    acc = ((w[:, None] * s)[:, None] * d).sum(2)
+    return P + relax * acc / torch.clamp(topo.degree, min=1.0)[:, None]
+
+
+def _step_mesh(state, topo, params, *, substeps, iterations, contact_every,
+               contact_iterations, contact_window, spring_mode,
+               self_collision, backend, contact_mode, resort_interval):
+    """Generic-mesh step on (B, 3, N) state in mesh vertex order: the
+    springs of solve_springs_mesh in the substep loop, contacts of any
+    mode with the rest-pose SelfCollideFilter (sort: the contacts kernel's
+    mesh mode on the pallas backend, its plain version on the xla one),
+    the aero kick through mesh_normals, picker friction."""
+    P = state.positions
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    moving = state.active & (w > 0)
+    relax = float(f32(params.relaxation_factor))
+    contact_fn = perm = inv = None
+    if self_collision and contact_mode == "sort":
+        contact_fn = _sorted_mesh_contacts(
+            state, topo, params, w, contact_window, contact_iterations,
+            backend)
+    elif self_collision and contact_mode in ("sweep", "block"):
+        contact_fn, perm, inv = _cached_contacts(
+            state, P, w, moving, state.active, params, contact_mode,
+            contact_iterations, resort_interval,
+            rest_positions=topo.rest_positions)
+    elif self_collision:
+        nbr, mask = collisions.find_neighbors_hash(
+            P, moving, params.radius, topo.rest_positions)
+
+        def contact_fn(Q, prev):
+            return collisions.solve_contacts(Q, w, moving, nbr, mask,
+                                             rest_dist=params.radius)
+    P, V = _run_substeps(
+        P, state.velocities, w, moving, params, state.picker_pos,
+        substeps=substeps, iterations=iterations,
+        solve_fn=lambda Q: solve_springs_mesh(Q, w, topo, relax),
+        contact_fn=contact_fn, contact_every=contact_every,
+        chebyshev=spring_mode != "jacobi",
+        normals_fn=_mesh_normals_fn(state, topo, params))
+    out = state.replace(positions=P, velocities=V)
+    if perm is not None:
+        out = out.replace(sweep_perm=perm, sweep_inv=inv)
+    return out
+
+
+# --------------------------------------------------------------------------
+# grid cloths on the xla backend (_step_grid, solver.py:687-748)
+# --------------------------------------------------------------------------
+
+def _grid_class_terms(P, w, valid, dy, dx, rest, stiff):
+    """(d, s-numerator C, wsum, pair_ok) of one stencil class: the pairs
+    (y, x) - (y + dy, x + dx) inside the cloth."""
+    Pb = shift2d(P, dy, dx)
+    wb = shift2d(w, dy, dx)
+    pair_ok = valid & shift2d(valid, dy, dx, fill=False)
+    d = Pb - P
+    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                      + d[:, 2] * d[:, 2] + _EPS)
+    return d, dist, dist - rest, w + wb, wb, pair_ok
+
+
+def _class_constants(topo: GridTopology, cls: int, rest_k: float):
+    """(rest length, per-env stiffness (B, 1, 1)) of a stencil class."""
+    stiff = topo.stiffness[:, cls].view(-1, 1, 1)
+    return f32(f32(topo.spacing) * f32(rest_k)), stiff
+
+
+def grid_phase(P, w, valid, dy, dx, color, rest, stiff, relax):
+    """One coloured Gauss-Seidel phase of one stencil class (_grid_phase,
+    solver.py:143-175): the constraints whose start slot has parity
+    `color` (by x for (0, 1), by y for (1, 0) and the diagonals, by x // 2
+    and y // 2 for the bends) touch no particle twice, so both endpoint
+    updates apply at once."""
+    H, W = P.shape[-2], P.shape[-1]
+    iy = torch.arange(H, device=P.device).view(1, H, 1)
+    ix = torch.arange(W, device=P.device).view(1, 1, W)
+    if (dy, dx) == (0, 1):
+        sel = (ix % 2) == color
+    elif (dy, dx) == (1, 0):
+        sel = (iy % 2) == color
+    elif (dy, dx) == (0, 2):
+        sel = ((ix // 2) % 2) == color
+    elif (dy, dx) == (2, 0):
+        sel = ((iy // 2) % 2) == color
+    else:  # the diagonals (1, 1) and (1, -1)
+        sel = (iy % 2) == color
+    d, dist, C, wsum, wb, pair_ok = _grid_class_terms(P, w, valid, dy, dx,
+                                                      rest, stiff)
+    s = torch.where(sel & pair_ok & (wsum > 0),
+                    relax * stiff * C / ((wsum + _EPS) * dist), 0.0)
+    dA = (w * s)[:, None] * d
+    dB = (-(wb * s))[:, None] * d
+    return P + dA + shift2d(dB, -dy, -dx)
+
+
+def grid_jacobi_xla(P, w, valid, topo: GridTopology, relax):
+    """All six stencil classes from the same P, summed and divided by each
+    particle's constraint count (_grid_jacobi, solver.py:178-201)."""
+    acc = torch.zeros_like(P)
+    count = torch.zeros_like(w)
+    for dy, dx, rest_k, cls in GRID_STENCIL_CLASSES:
+        rest, stiff = _class_constants(topo, cls, rest_k)
+        d, dist, C, wsum, wb, pair_ok = _grid_class_terms(
+            P, w, valid, dy, dx, rest, stiff)
+        s = torch.where(pair_ok & (wsum > 0),
+                        stiff * C / ((wsum + _EPS) * dist), 0.0)
+        dA = (w * s)[:, None] * d
+        dB = (-(wb * s))[:, None] * d
+        acc = acc + dA + shift2d(dB, -dy, -dx)
+        cnt = pair_ok.to(P.dtype)
+        count = count + cnt + shift2d(cnt, -dy, -dx)
+    return P + relax * acc / torch.clamp(count, min=1.0)[:, None]
+
+
+def solve_springs_grid(P, w, valid, topo: GridTopology, relax,
+                       mode: str):
+    """One spring pass of the xla grid step (solve_springs_grid,
+    solver.py:204-214): "gs" runs every class's two colour phases in
+    class order, each against the positions the previous phase left;
+    "jacobi" and "chebyshev" run grid_jacobi_xla."""
+    if mode in ("jacobi", "chebyshev"):
+        return grid_jacobi_xla(P, w, valid, topo, relax)
+    for dy, dx, rest_k, cls in GRID_STENCIL_CLASSES:
+        rest, stiff = _class_constants(topo, cls, rest_k)
+        for color in (0, 1):
+            P = grid_phase(P, w, valid, dy, dx, color, rest, stiff, relax)
+    return P
+
+
+def _step_grid_xla(state, topo, params, *, substeps, iterations,
+                   contact_every, contact_iterations, contact_window,
+                   spring_mode, self_collision, contact_mode,
+                   resort_interval):
+    """Grid step of the xla backend on lattices P (B, 3, H, W): the
+    stencil springs of solve_springs_grid (Chebyshev only for
+    spring_mode "chebyshev", solver.py:737) in the substep loop, contacts
+    of any mode with the lattice-neighbour filter, the aero kick through
+    grid_normals, picker friction."""
+    B, H, W = state.batch, topo.max_dimy, topo.max_dimx
+    N = H * W
+    P = state.positions.view(B, 3, H, W)
+    valid = lattice_valid(topo.dimx, topo.dimy, H, W)
+    w = torch.where(valid, state.inv_mass.view(B, H, W), 0.0)
+    moving = valid & (w > 0)
+    flat_valid = valid.reshape(B, N)
+    flat_w, flat_moving = w.reshape(B, N), moving.reshape(B, N)
+    relax = float(f32(params.relaxation_factor))
+    contact_fn = perm = inv = None
+    if self_collision and contact_mode == "sort":
+        def contact_fn(Q, prev):
+            return collisions.contact_group(
+                Q.reshape(B, 3, N), prev.reshape(B, 3, N), flat_w,
+                flat_valid, params, rest_dist=params.radius, lattice_w=W,
+                window=contact_window, iterations=contact_iterations,
+                backend="xla").view(B, 3, H, W)
+    elif self_collision and contact_mode in ("sweep", "block"):
+        flat_fn, perm, inv = _cached_contacts(
+            state, state.positions, flat_w, flat_moving, flat_valid, params,
+            contact_mode, contact_iterations, resort_interval, lattice_w=W)
+
+        def contact_fn(Q, prev):
+            return flat_fn(Q.reshape(B, 3, N),
+                           prev.reshape(B, 3, N)).view(B, 3, H, W)
+    elif self_collision:
+        nbr, mask = collisions.find_neighbors_grid(
+            state.positions, flat_moving, W, params.radius)
+
+        def contact_fn(Q, prev):
+            return collisions.solve_contacts(
+                Q.reshape(B, 3, N), flat_w, flat_moving, nbr, mask,
+                rest_dist=params.radius).view(B, 3, H, W)
+    normals_fn = None
+    if _aero_on(params):
+        def normals_fn(Q):
+            return aero.grid_normals(Q, valid)
+    P, V = _run_substeps(
+        P, state.velocities.view(B, 3, H, W), w, moving, params,
+        state.picker_pos, substeps=substeps, iterations=iterations,
+        solve_fn=lambda Q: solve_springs_grid(Q, w, valid, topo, relax,
+                                              spring_mode),
+        contact_fn=contact_fn, contact_every=contact_every,
+        chebyshev=spring_mode == "chebyshev", normals_fn=normals_fn)
+    out = state.replace(positions=P.reshape(B, 3, N),
+                        velocities=V.reshape(B, 3, N))
+    if perm is not None:
+        out = out.replace(sweep_perm=perm, sweep_inv=inv)
+    return out

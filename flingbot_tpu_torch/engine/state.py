@@ -1,9 +1,11 @@
 """Cloth state and solver parameters (counterpart of
 flingbot_tpu/engine/state.py).
 
-`ClothState` is batched and kept in lattice order: particle slot
-y * W + x of an (H, W) lattice, positions (B, 3, H*W).  Slots outside an
-env's (dimy, dimx) cloth are inactive and never move.
+`ClothState` is batched.  Grid cloths keep lattice order: particle slot
+y * W + x of an (H, W) lattice, positions (B, 3, H*W); slots outside an
+env's (dimy, dimx) cloth are inactive and never move.  Layered shirts keep
+their lattice's slots, generic meshes the mesh's vertex order padded to a
+capacity.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from flingbot_tpu_torch.device import resolve_device
 
 PARTICLE_RADIUS = 0.00625
 DEFAULT_DT = 1.0 / 100.0
@@ -65,6 +69,14 @@ class ClothState:
       active        (B, N)    bool  slot holds a cloth particle
       picker_pos    (B, P, 3) f32   gripper sphere centres
       picked_idx    (B, P)    i64   grasped lattice slot, -1 if none
+      time          (B,)      f32   sim time
+      step_count    (B,)      i64   solver steps taken (a reload restarts
+                                    its slot at 0)
+      sweep_perm    (B, N)    i64   cached Morton order of the sweep and
+      sweep_inv     (B, N)    i64   block contacts, and its inverse
+
+    The last four default to step 0 and identity permutations, as
+    ClothState.create starts them (flingbot_tpu/engine/state.py:139-207).
     """
 
     positions: torch.Tensor
@@ -74,6 +86,48 @@ class ClothState:
     active: torch.Tensor
     picker_pos: torch.Tensor
     picked_idx: torch.Tensor
+    time: torch.Tensor | None = None
+    step_count: torch.Tensor | None = None
+    sweep_perm: torch.Tensor | None = None
+    sweep_inv: torch.Tensor | None = None
+
+    def __post_init__(self):
+        B, _, N = self.positions.shape
+        dev = self.positions.device
+        if self.time is None:
+            self.time = torch.zeros(B, dtype=torch.float32, device=dev)
+        if self.step_count is None:
+            self.step_count = torch.zeros(B, dtype=torch.int64, device=dev)
+        ident = torch.arange(N, device=dev).expand(B, N)
+        if self.sweep_perm is None:
+            self.sweep_perm = ident.clone()
+        if self.sweep_inv is None:
+            self.sweep_inv = ident.clone()
+
+    @classmethod
+    def create(cls, positions, inv_mass, capacity: int | None = None,
+               num_pickers: int = NUM_PICKERS,
+               device="cuda") -> "ClothState":
+        """A batch-1 state from (n, 3) positions and (n,) inverse masses
+        padded to `capacity` slots, at rest, pickers parked at -10, step 0
+        (ClothState.create, flingbot_tpu/engine/state.py:176-207)."""
+        pos = np.asarray(positions, np.float32).reshape(-1, 3)
+        inv = np.asarray(inv_mass, np.float32).reshape(-1)
+        n = len(pos)
+        cap = capacity or n
+        if cap < n:
+            raise ValueError(f"capacity {cap} < {n} particles")
+        P = np.zeros((1, 3, cap), np.float32)
+        P[0, :, :n] = pos.T
+        w = np.zeros((1, cap), np.float32)
+        w[0, :n] = inv
+        dev = resolve_device(device)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        return cls(
+            positions=t(P), velocities=t(np.zeros_like(P)), inv_mass=t(w),
+            rest_inv_mass=t(w.copy()), active=t(np.arange(cap)[None] < n),
+            picker_pos=t(np.full((1, num_pickers, 3), -10.0, np.float32)),
+            picked_idx=t(np.full((1, num_pickers), -1, np.int64)))
 
     @property
     def batch(self) -> int:

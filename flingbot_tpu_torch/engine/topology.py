@@ -1,12 +1,14 @@
 """Cloth topology (counterpart of flingbot_tpu/engine/topology.py): grid
-cloths and layered-lattice shirts.
+cloths, layered-lattice shirts and generic meshes.
 
 Grid springs are never materialized as edge lists: the solver walks the six
 CreateSpringGrid stencil classes directly on the (H, W) lattice.  Dims are
 per env, because the envs of one batch hold cloths of different sizes
 (<= max_dimx x max_dimy).  Shirts (two-panel quad meshes) are laid onto one
 layered lattice per batch, where every spring class is a fixed lattice
-offset (LayeredGridTopology).
+offset (LayeredGridTopology).  Any other quad mesh takes the generic mesh
+path (MeshTopology): per-vertex incidence tables of its springs and
+triangles, padded to one capacity per batch.
 """
 
 from __future__ import annotations
@@ -94,6 +96,35 @@ def grid_positions(dimx: int, dimy: int, lower=(0.0, 0.0, 0.0),
     pos = np.stack(
         [xx + lower[0], np.full_like(xx, lower[1]), zz + lower[2]], axis=-1)
     return pos.reshape(-1, 3).astype(np.float32)
+
+
+def grid_spring_edges(dimx: int, dimy: int):
+    """(edges (E, 2), rest in spacings (E,), stiffness class (E,)) of a grid
+    cloth in canonical indices (grid_spring_edges, topology.py:169-202)."""
+    idx = np.arange(dimx * dimy).reshape(dimy, dimx)
+    edges, rests, clss = [], [], []
+    for a, b, rest, c in (
+            (idx[:, :-1], idx[:, 1:], 1.0, 0),
+            (idx[:-1, :], idx[1:, :], 1.0, 0),
+            (idx[:, :-2], idx[:, 2:], 2.0, 1),
+            (idx[:-2, :], idx[2:, :], 2.0, 1),
+            (idx[:-1, :-1], idx[1:, 1:], SQRT2, 2),
+            (idx[:-1, 1:], idx[1:, :-1], SQRT2, 2)):
+        e = np.stack([a.reshape(-1), b.reshape(-1)], axis=1)
+        edges.append(e)
+        rests.append(np.full(len(e), rest))
+        clss.append(np.full(len(e), c, np.int64))
+    return np.concatenate(edges), np.concatenate(rests), np.concatenate(clss)
+
+
+def grid_triangles_np(dimx: int, dimy: int) -> np.ndarray:
+    """(2 (dimx-1)(dimy-1), 3) canonical triangles of a grid cloth, two per
+    quad (grid_triangles_np, topology.py:626-637)."""
+    idx = np.arange(dimx * dimy).reshape(dimy, dimx)
+    a, b = idx[:-1, :-1].reshape(-1), idx[:-1, 1:].reshape(-1)
+    c, d = idx[1:, 1:].reshape(-1), idx[1:, :-1].reshape(-1)
+    return np.stack([np.stack([a, b, c], 1), np.stack([a, c, d], 1)],
+                    1).reshape(-1, 3)
 
 
 def build_grid_topology(dimx, dimy, stiffness=(0.9, 1.0, 0.9),
@@ -385,6 +416,8 @@ class LayeredGridTopology:
       tri_mask        (B, T) bool
       mesh_slot       (B, Vcap) i64   lattice slot of each mesh vertex
       num_verts       (B,) i64
+      vert_tri        (B, Dt, H*W) i64  triangles incident to each slot
+      vert_tri_mask   (B, Dt, H*W) bool (the mesh normals' gather)
     """
 
     rest: torch.Tensor
@@ -396,6 +429,8 @@ class LayeredGridTopology:
     tri_mask: torch.Tensor
     mesh_slot: torch.Tensor
     num_verts: torch.Tensor
+    vert_tri: torch.Tensor
+    vert_tri_mask: torch.Tensor
     spec: LayeredSpec
 
     @property
@@ -512,6 +547,8 @@ def build_layered_topology(rest_positions, stretch_edges, bend_edges,
         raise ValueError("mesh exceeds LayeredSpec.tri_capacity")
     tri = np.zeros((spec.tri_capacity, 3), np.int64)
     tri[:nt] = slot[faces]
+    vert_tri, vert_tri_mask = vertex_triangles(tri[:nt], H * W,
+                                               TRI_DEGREE_CAPACITY)
 
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)[None]
@@ -521,7 +558,7 @@ def build_layered_topology(rest_positions, stretch_edges, bend_edges,
         active=dev(active), rest_positions=dev(rest_pad.T.copy()),
         triangles=dev(tri), tri_mask=dev(np.arange(spec.tri_capacity) < nt),
         mesh_slot=dev(mesh_slot), num_verts=dev(np.int64(n)).reshape(1),
-        spec=spec)
+        vert_tri=dev(vert_tri), vert_tri_mask=dev(vert_tri_mask), spec=spec)
 
 
 @functools.lru_cache(maxsize=8)
@@ -544,3 +581,202 @@ def layered_neighbours(offsets: tuple, H: int, W: int, device):
             ok.append(inside)
         tables += [torch.stack(idx), torch.stack(ok)]
     return tuple(tables)
+
+
+def incidence_table(owner: np.ndarray, value: np.ndarray, n: int, cap: int):
+    """Per-owner lists of values as a padded (cap, n) table: column v holds,
+    in order of appearance, the values of the entries whose owner is v
+    (rank within the owner's group, as build_mesh_topology buckets its
+    springs, topology.py:322-346).  Returns (table i64 (0 on padding), rank
+    (per entry), mask (cap, n) bool)."""
+    owner = np.asarray(owner, np.int64).reshape(-1)
+    table = np.zeros((cap, n), np.int64)
+    mask = np.zeros((cap, n), bool)
+    if owner.size == 0:
+        return table, np.zeros(0, np.int64), mask
+    order = np.argsort(owner, kind="stable")
+    v_sorted = owner[order]
+    rank = np.arange(len(v_sorted)) - np.searchsorted(v_sorted, v_sorted)
+    if int(rank.max()) >= cap:
+        raise ValueError(f"an incidence list of {int(rank.max()) + 1} "
+                         f"entries exceeds the table's capacity {cap}")
+    table[rank, v_sorted] = np.asarray(value, np.int64).reshape(-1)[order]
+    mask[rank, v_sorted] = True
+    out_rank = np.empty_like(rank)
+    out_rank[order] = rank
+    return table, out_rank, mask
+
+
+def vertex_triangles(triangles: np.ndarray, n: int, cap: int):
+    """(cap, n) table of the triangles incident to each vertex and its mask:
+    the gather that replaces mesh_normals' scatter-add (aero.py:59-63), so
+    that the card sums each vertex's faces in one fixed order."""
+    tri = np.asarray(triangles, np.int64).reshape(-1, 3)
+    t_of_corner = np.repeat(np.arange(len(tri)), 3)
+    table, _, mask = incidence_table(tri.reshape(-1), t_of_corner, n, cap)
+    return table, mask
+
+
+# the incidence-table width of the mesh normals: a vertex of the repo's
+# shirts touches at most 10 triangles
+TRI_DEGREE_CAPACITY = 16
+
+
+@dataclasses.dataclass
+class MeshTopology:
+    """Batched generic-mesh topology (counterpart of
+    flingbot_tpu.engine.topology.MeshTopology), padded to one vertex
+    capacity N per batch.  The spring solve gathers through the
+    vertex-centric incidence tables nbr_* (each vertex's <= D springs);
+    the normals gather through vert_tri (each vertex's <= Dt triangles).
+
+      edges           (B, E, 2) i64   spring endpoints (padding: 0, 0)
+      rest, stiffness (B, E) f32      (padding: rest 1, stiffness 0)
+      edge_mask       (B, E) bool
+      degree          (B, N) f32      springs per vertex
+      triangles       (B, T, 3) i64   padded with (0, 0, 0)
+      tri_mask        (B, T) bool
+      rest_positions  (B, 3, N) f32   rest pose, 1e6 on padding
+      nbr_idx         (B, D, N) i64   neighbour of each incident spring
+      nbr_rest, nbr_stiff (B, D, N) f32
+      nbr_mask        (B, D, N) bool
+      vert_tri        (B, Dt, N) i64  incident triangles of each vertex
+      vert_tri_mask   (B, Dt, N) bool
+    """
+
+    edges: torch.Tensor
+    rest: torch.Tensor
+    stiffness: torch.Tensor
+    edge_mask: torch.Tensor
+    degree: torch.Tensor
+    triangles: torch.Tensor
+    tri_mask: torch.Tensor
+    rest_positions: torch.Tensor
+    nbr_idx: torch.Tensor
+    nbr_rest: torch.Tensor
+    nbr_stiff: torch.Tensor
+    nbr_mask: torch.Tensor
+    vert_tri: torch.Tensor
+    vert_tri_mask: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.degree.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.degree.shape[1]
+
+    def _tensors(self):
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def index(self, idx) -> "MeshTopology":
+        return MeshTopology(**{k: v[idx] for k, v in self._tensors().items()})
+
+    def to(self, device) -> "MeshTopology":
+        return MeshTopology(**{k: v.to(device)
+                               for k, v in self._tensors().items()})
+
+    def set_slots(self, idx: torch.Tensor,
+                  other: "MeshTopology") -> "MeshTopology":
+        """This batch with env slots `idx` (K,) set from the K-env batch
+        `other`, padded to the same capacities."""
+        for k, v in self._tensors().items():
+            if v.shape[1:] != other._tensors()[k].shape[1:]:
+                raise ValueError("mesh topologies of one batch must share "
+                                 f"their capacities ({k})")
+        return MeshTopology(**{k: v.index_copy(0, idx, other._tensors()[k])
+                               for k, v in self._tensors().items()})
+
+    @staticmethod
+    def cat(topos) -> "MeshTopology":
+        """One batch from topologies padded to the same capacities."""
+        return MeshTopology(**{k: torch.cat([t._tensors()[k] for t in topos])
+                               for k in topos[0]._tensors()})
+
+
+def build_mesh_topology(rest_positions, stretch_edges, bend_edges,
+                        shear_edges, faces, stiffness=(0.9, 1.0, 0.9),
+                        capacity=None, edge_capacity=None, tri_capacity=None,
+                        degree_capacity=None,
+                        tri_degree_capacity: int = TRI_DEGREE_CAPACITY,
+                        device="cuda") -> MeshTopology:
+    """A quad mesh as a batch-1 MeshTopology (build_mesh_topology,
+    topology.py:265-361): springs of the three classes with their
+    stiffness, rest lengths measured on the rest pose, per-vertex degree
+    and incidence tables (each spring listed under both endpoints, in
+    edge order), all padded to the capacities given (default: the mesh's
+    own sizes).  Built on the host in numpy; the tables live on
+    `device`."""
+    device = resolve_device(device)
+    rest_positions = np.asarray(rest_positions, np.float32).reshape(-1, 3)
+    n = rest_positions.shape[0]
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"mesh of {n} vertices exceeds capacity {cap}")
+    per_class = [np.asarray(e, np.int64).reshape(-1, 2)
+                 for e in (stretch_edges, bend_edges, shear_edges)]
+    edges = np.concatenate(per_class)
+    stiff = np.concatenate([np.full(len(e), stiffness[c], np.float32)
+                            for c, e in enumerate(per_class)])
+    rest = np.linalg.norm(rest_positions[edges[:, 0]]
+                          - rest_positions[edges[:, 1]],
+                          axis=1).astype(np.float32)
+    ne = len(edges)
+    ecap = edge_capacity or ne
+    if ecap < ne:
+        raise ValueError(f"mesh of {ne} springs exceeds edge capacity {ecap}")
+    degree = np.zeros(cap, np.float32)
+    np.add.at(degree, edges[:, 0], 1.0)
+    np.add.at(degree, edges[:, 1], 1.0)
+    faces = np.asarray(faces, np.int64).reshape(-1, 3)
+    nt = len(faces)
+    tcap = tri_capacity or nt
+    if tcap < nt:
+        raise ValueError(f"mesh of {nt} triangles exceeds capacity {tcap}")
+    deg_cap = degree_capacity or max(int(degree.max()) if ne else 1, 1)
+    # each spring under both endpoints: (vertex, other end, edge id)
+    ends = np.concatenate([edges, edges[:, ::-1]])
+    eid = np.concatenate([np.arange(ne), np.arange(ne)])
+    nbr_idx, rank, nbr_mask = incidence_table(ends[:, 0], ends[:, 1], cap,
+                                              deg_cap)
+    nbr_rest = np.ones((deg_cap, cap), np.float32)
+    nbr_stiff = np.zeros((deg_cap, cap), np.float32)
+    nbr_rest[rank, ends[:, 0]] = rest[eid]
+    nbr_stiff[rank, ends[:, 0]] = stiff[eid]
+    vert_tri, vert_tri_mask = vertex_triangles(faces, cap,
+                                               tri_degree_capacity)
+
+    def pad(a, size, fill):
+        out = np.full((size,) + a.shape[1:], fill, a.dtype)
+        out[:len(a)] = a
+        return out
+
+    rest_pad = pad(rest_positions, cap, np.float32(1e6))
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)[None]
+
+    return MeshTopology(
+        edges=dev(pad(edges, ecap, 0)), rest=dev(pad(rest, ecap, 1.0)),
+        stiffness=dev(pad(stiff, ecap, 0.0)),
+        edge_mask=dev(np.arange(ecap) < ne), degree=dev(degree),
+        triangles=dev(pad(faces, tcap, 0)),
+        tri_mask=dev(np.arange(tcap) < nt), rest_positions=dev(rest_pad.T),
+        nbr_idx=dev(nbr_idx), nbr_rest=dev(nbr_rest),
+        nbr_stiff=dev(nbr_stiff), nbr_mask=dev(nbr_mask),
+        vert_tri=dev(vert_tri), vert_tri_mask=dev(vert_tri_mask))
+
+
+def grid_mesh_topology(dimx: int, dimy: int, stiffness=(0.9, 1.0, 0.9),
+                       spacing: float = PARTICLE_RADIUS, device="cuda",
+                       **caps) -> MeshTopology:
+    """A grid cloth through the generic mesh path (grid_mesh_topology,
+    topology.py:364-380): its springs and triangles in canonical order."""
+    edges, _, cls = grid_spring_edges(dimx, dimy)
+    return build_mesh_topology(
+        grid_positions(dimx, dimy, spacing=spacing),
+        *(edges[cls == c] for c in range(3)),
+        grid_triangles_np(dimx, dimy), stiffness=stiffness, device=device,
+        **caps)

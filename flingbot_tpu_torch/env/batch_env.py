@@ -1,6 +1,6 @@
-"""BatchSimEnv: a batch of cloth envs (grid cloths, or shirts on one
-layered lattice) stepping in lockstep on one card (counterpart of
-flingbot_tpu/env/batch_env.py, eval path).
+"""BatchSimEnv: a batch of cloth envs (grid cloths, shirts on one layered
+lattice, or other quad meshes through the generic mesh path) stepping in
+lockstep on one card (counterpart of flingbot_tpu/env/batch_env.py).
 
     env = BatchSimEnv(get_task_fn=loader.get_next_task, num_envs=64,
                       replay_buffer_path=replay_dir, episode_length=3)
@@ -25,13 +25,15 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from flingbot_tpu_torch.device import resolve_device
-from flingbot_tpu_torch.engine.solver import SPRING_MODES
+from flingbot_tpu_torch.engine.solver import (
+    BACKENDS, CONTACT_MODES, SPRING_MODES)
 from flingbot_tpu_torch.engine.solver import step as solver_step
 from flingbot_tpu_torch.engine.state import (
     MAX_GRID_DIM, ClothState, SolverParams)
@@ -61,6 +63,18 @@ class StepInfo(NamedTuple):
     chunks: int  # host-driven program chunks
 
 
+class StepStart(NamedTuple):
+    """What BatchSimEnv.begin_step hands to run_program and end_step."""
+    t0: float  # perf_counter at the step's start
+    prev_stack: torch.Tensor  # the observation the actions were chosen on
+    selection: ActionSelection
+    pre_coverage: torch.Tensor
+    pre_positions: torch.Tensor
+    carry: object  # the interpreter's start carry
+    prog: object  # the programs
+    max_steps: int  # sim-step cap of the programs
+
+
 class BatchSimEnv:
     """Cloth envs in lockstep.  Observation and primitive settings default
     to run_sim.py's (the fling; grasp radius 1, adaptive scaling, reach
@@ -71,8 +85,13 @@ class BatchSimEnv:
 
     get_task_fn: returns the next env.tasks.Task (TaskLoader.get_next_task)
     for reset() and reloads; layered_spec: the shared lattice of a shirt
-    task file (tasks.detect_topology_buckets); mesh_caps: the bucket of
-    the generic mesh path, which the port does not have."""
+    task file, or mesh_caps: the (verts, edges, tris) bucket of a file of
+    other meshes, which take the generic mesh path (both from
+    tasks.detect_topology_buckets).  backend and contact_mode go to
+    solver.step; the defaults are the production
+    "pallas" / "sort" that run_sim and eval_quality pass (the JAX
+    constructor's own are "xla" / "block").  A layered batch runs "sort"
+    whatever contact_mode says, as the JAX env does."""
 
     def __init__(self, get_task_fn: Optional[Callable] = None,
                  num_envs: Optional[int] = None,
@@ -91,21 +110,30 @@ class BatchSimEnv:
                  substeps: int = 4, iterations: int = 16,
                  contact_every: int = 2, contact_iterations: int = 4,
                  contact_window: int = 12, spring_mode: str = "chebyshev",
-                 self_collision: bool = True,
+                 self_collision: bool = True, backend: str = "pallas",
+                 contact_mode: str = "sort",
                  domain_randomization: bool = True,
                  fling_speed: float = 6e-3, fixed_fling_height: float = -1.0,
                  chunk_steps: int = 64, max_program_steps: int = 4000,
                  solver_params: SolverParams | None = None, seed: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
-        if spring_mode not in SPRING_MODES:
-            raise ValueError(f"unknown spring_mode {spring_mode!r}")
-        if mesh_caps is not None:
-            raise NotImplementedError(
-                "this task file needs the generic mesh path (mesh_caps "
-                f"{mesh_caps}: its meshes are not two-layer lattices), "
-                "which flingbot_tpu_torch does not have yet (_step_mesh, "
-                "ROADMAP Queue 1 item 9)")
+        for name, value, choices in (
+                ("spring_mode", spring_mode, SPRING_MODES),
+                ("backend", backend, BACKENDS),
+                ("contact_mode", contact_mode, CONTACT_MODES)):
+            if value not in choices:
+                raise ValueError(f"unknown {name} {value!r}")
+        if mesh_caps is not None and layered_spec is not None:
+            raise ValueError("pass either mesh_caps (the generic mesh path) "
+                             "or layered_spec")
+        if layered_spec is not None and contact_mode != "sort":
+            # the layered step has the sorted contact group only
+            # (batch_env.py:143-153)
+            warnings.warn(f"layered topology: contact_mode {contact_mode!r}"
+                          " -> 'sort' (the only contact group the layered "
+                          "shirt path implements)")
+            contact_mode = "sort"
         if get_task_fn is not None and not num_envs:
             raise ValueError("a task source needs num_envs")
         self.get_task_fn = get_task_fn
@@ -114,6 +142,7 @@ class BatchSimEnv:
         self.episode_length = episode_length
         self.max_grid_dim = max_grid_dim
         self.layered_spec = layered_spec
+        self.mesh_caps = mesh_caps
         self.action_primitives = tuple(action_primitives)
         self.rotations = torch.as_tensor(
             rotation_list(num_rotations, self.action_primitives),
@@ -134,7 +163,8 @@ class BatchSimEnv:
             contact_every=contact_every,
             contact_iterations=contact_iterations,
             contact_window=contact_window, spring_mode=spring_mode,
-            self_collision=self_collision)
+            self_collision=self_collision, backend=backend,
+            contact_mode=contact_mode)
         self.prim_cfg = PrimitiveConfig(
             fling_speed=fling_speed, fixed_fling_height=fixed_fling_height,
             stretchdrag_dist=stretchdrag_dist,
@@ -160,12 +190,14 @@ class BatchSimEnv:
         (_load_scene, batch_env.py:336-345, for all of them at once)."""
         return make_batch([scene_task(t) for t in tasks],
                           max_grid_dim=self.max_grid_dim, device=self.device,
-                          layered_spec=self.layered_spec)
+                          layered_spec=self.layered_spec,
+                          mesh_caps=self.mesh_caps)
 
     def reset(self, state: ClothState | None = None,
               topo=None) -> torch.Tensor:
         """Load a task into every env slot (or take the caller's start
-        states and topology: a GridTopology or a LayeredGridTopology),
+        states and topology: a GridTopology, a LayeredGridTopology or a
+        MeshTopology),
         park the arms, settle one solver step, record init coverage and
         observe (reset, batch_env.py:370-396)."""
         if state is None:
@@ -253,28 +285,46 @@ class BatchSimEnv:
         """value_maps (B, P, T, D, D) -> next obs stack (B, T, 4, D, D).
         With tasks: replay logging, episode ends and reloads; prints the
         step's [env.perf] wall-time buckets."""
+        start = self.begin_step(value_maps)
+        # hard cap: every program ends within max_steps sim steps plus its
+        # jump-only interpreter steps (< 2 per instruction)
+        max_chunks = math.ceil(
+            (start.max_steps + 2 * start.prog.num_instructions)
+            / self.chunk_steps) + 1
+        carry, chunks = start.carry, 0
+        for _ in range(max_chunks):
+            carry, done = self.run_program(start, carry, self.chunk_steps)
+            chunks += 1
+            if bool(done.all()):
+                break
+        return self.end_step(start, carry, chunks)
+
+    def begin_step(self, value_maps: torch.Tensor) -> StepStart:
+        """The first part of step(): each env's action and program from
+        value_maps; the env is left as it was."""
         t0 = time.perf_counter()
         vm = torch.as_tensor(value_maps).to(self.device)
-        prev_stack = self.obs.obs_stack
         sel, pre_cov, pre_pos, carry, prog = step_begin(
             self.state, vm, self.obs, self.rotations, self.prim_cfg,
             self.pix_grasp_dist, self.action_primitives, self.pix_drag_dist,
             self.pix_place_dist)
-        max_steps = self.prim_cfg.max_program_steps + STABLE_MAX_STEPS
-        # hard cap: every program ends within max_steps sim steps plus its
-        # jump-only interpreter steps (< 2 per instruction)
-        max_chunks = math.ceil(
-            (max_steps + 2 * prog.num_instructions) / self.chunk_steps) + 1
-        chunks = 0
-        for _ in range(max_chunks):
-            carry, done = program_chunk(
-                carry, self.topo, self.params, prog,
-                chunk_steps=self.chunk_steps, max_steps=max_steps,
-                sim_kw=self.sim_kw)
-            chunks += 1
-            if bool(done.all()):
-                break
-        state, post_cov, terminate = step_finish(carry, pre_pos)
+        return StepStart(t0, self.obs.obs_stack, sel, pre_cov, pre_pos,
+                         carry, prog,
+                         self.prim_cfg.max_program_steps + STABLE_MAX_STEPS)
+
+    def run_program(self, start: StepStart, carry, steps: int):
+        """Up to `steps` interpreter steps of start's programs from carry
+        -> (carry, done (B,) bool)."""
+        return program_chunk(carry, self.topo, self.params, start.prog,
+                             chunk_steps=steps, max_steps=start.max_steps,
+                             sim_kw=self.sim_kw)
+
+    def end_step(self, start: StepStart, carry, chunks: int) -> torch.Tensor:
+        """The last part of step() on the programs' carry: post coverage,
+        termination, the next observation; with tasks, the replay record,
+        episode ends and reloads."""
+        t0, sel, pre_cov = start.t0, start.selection, start.pre_coverage
+        state, post_cov, terminate = step_finish(carry, start.pre_positions)
         self.state = state
         self.last = StepInfo(sel, pre_cov, post_cov, terminate,
                              carry.total_steps, chunks)
@@ -284,8 +334,8 @@ class BatchSimEnv:
         if self.tasks is None:
             return self.obs.obs_stack
 
-        reload_idx = self._log_step(prev_stack, sel, pre_cov, post_cov,
-                                    terminate)
+        reload_idx = self._log_step(start.prev_stack, sel, pre_cov,
+                                    post_cov, terminate)
         t_replay = time.perf_counter()
         if reload_idx:
             self._reload(reload_idx)

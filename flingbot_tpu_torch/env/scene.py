@@ -1,8 +1,9 @@
 """Scene construction: task arrays -> batched (topology, ClothState)
-(counterpart of flingbot_tpu/env/scene.py: grid cloths, and shirts on one
-shared layered lattice) from task files (`scene_task`) or from arrays, and
-a seeded lift-and-drop crumple that makes start states without task
-files.
+(counterpart of flingbot_tpu/env/scene.py: grid cloths, shirts on one
+shared layered lattice, and other quad meshes through the generic mesh
+path padded to one bucket of capacities) from task files (`scene_task`)
+or from arrays, and a seeded lift-and-drop crumple that makes start
+states without task files.
 """
 
 from __future__ import annotations
@@ -20,11 +21,18 @@ from flingbot_tpu_torch.engine.solver import step as solver_step
 from flingbot_tpu_torch.engine.state import (
     MAX_GRID_DIM, NUM_PICKERS, PARTICLE_RADIUS, ClothState, SolverParams)
 from flingbot_tpu_torch.engine.topology import (
-    MESH_KEYS, GridTopology, LayeredGridTopology, LayeredSpec,
-    build_grid_topology, build_layered_topology, compute_layered_spec,
-    grid_positions, load_cloth)
+    MESH_KEYS, GridTopology, LayeredGridTopology, LayeredSpec, MeshTopology,
+    build_grid_topology, build_layered_topology, build_mesh_topology,
+    compute_layered_spec, grid_positions, load_cloth)
 
 DEFAULT_STIFFNESS = (0.8, 1.0, 0.9)  # (stretch, bend, shear), scene default
+# padded capacities of the generic mesh path (flingbot_tpu/env/scene.py:
+# 34-42): the bucket of a scene built without one, and the ceilings of
+# tasks.detect_mesh_caps; the spring incidence tables' width
+MESH_VERT_CAPACITY = 8192
+MESH_EDGE_CAPACITY = 65536
+MESH_TRI_CAPACITY = 16384
+MESH_DEGREE_CAPACITY = 24
 PARK_PICKERS = ((0.5, 0.5, -0.5), (-0.5, 0.5, -0.5))
 
 
@@ -104,14 +112,21 @@ def _to_lattice(x: np.ndarray, dimx: int, dimy: int, H: int, W: int,
 
 
 def make_batch(tasks, max_grid_dim: int = MAX_GRID_DIM, device="cuda",
-               layered_spec: Optional[LayeredSpec] = None):
+               layered_spec: Optional[LayeredSpec] = None, mesh_caps=None):
     """Build one batched topology + state from grid-cloth Tasks or from
     ShirtTasks (make_scene + apply_state, scene.py:53-199).  Shirts share
     one layered lattice: `layered_spec`, or the spec computed over these
-    tasks.  Pickers start parked.  The batch lives on `device`: CUDA unless
-    the caller asks for the CPU."""
+    tasks; with mesh_caps = (verts, edges, tris) they take the generic
+    mesh path instead, padded to those capacities.  Pickers start parked.
+    The batch lives on `device`: CUDA unless the caller asks for the
+    CPU."""
     dev = resolve_device(device)
     if all(isinstance(t, ShirtTask) for t in tasks):
+        if mesh_caps is not None:
+            if layered_spec is not None:
+                raise ValueError("pass either mesh_caps (the generic mesh "
+                                 "path) or layered_spec")
+            return _make_mesh_batch(tasks, mesh_caps, dev)
         return _make_shirt_batch(tasks, layered_spec, dev)
     if any(isinstance(t, ShirtTask) for t in tasks):
         raise ValueError("one batch holds grid cloths or shirts, not both")
@@ -203,17 +218,73 @@ def _make_shirt_batch(tasks, spec, dev):
     return topo, _parked_state(pos_l, vel_l, inv_l, act_l, dev)
 
 
+def _mesh_positions(t: ShirtTask, n: int, cap: int):
+    """(pos (cap, 3), vel (cap, 3), inv (cap,)) of a mesh task in vertex
+    order: the rest pose at lower = (x, -y, z) of cloth_pos with inverse
+    mass n / cloth_mass, then its saved state (make_scene's mesh branch and
+    apply_state, scene.py:105-167)."""
+    verts = np.asarray(t.mesh_verts, np.float32).reshape(-1, 3)
+    cp = np.asarray(t.cloth_pos, np.float32)
+    pos = np.zeros((cap, 3), np.float32)
+    pos[:n] = verts + np.array([cp[0], -cp[1], cp[2]], np.float32)
+    inv = np.zeros(cap, np.float32)
+    inv[:n] = np.float32(n / float(t.cloth_mass))
+    vel = np.zeros_like(pos)
+    if t.particle_pos is not None and np.size(t.particle_pos):
+        pp = np.asarray(t.particle_pos, np.float32).reshape(-1, 4)
+        pos[:len(pp)] = pp[:, :3]
+        inv[:len(pp)] = pp[:, 3]
+    if t.particle_vel is not None and np.size(t.particle_vel):
+        pv = np.asarray(t.particle_vel, np.float32).reshape(-1, 3)
+        vel[:len(pv)] = pv
+    return pos, vel, inv
+
+
+def _make_mesh_batch(tasks, mesh_caps, dev):
+    """Quad meshes through the generic mesh path, each padded to the bucket
+    mesh_caps = (verts, edges, tris) (make_scene's mesh branch,
+    scene.py:105-126): vertex order, the first n slots of each env
+    active."""
+    vcap, ecap, tcap = (int(c) for c in mesh_caps)
+    topos, pos_l, vel_l, inv_l, act_l = [], [], [], [], []
+    for t in tasks:
+        verts = np.asarray(t.mesh_verts, np.float32).reshape(-1, 3)
+        n = len(verts)
+        stiff = np.asarray(t.cloth_stiff, np.float32)
+        topos.append(build_mesh_topology(
+            verts, t.mesh_stretch_edges, t.mesh_bend_edges,
+            t.mesh_shear_edges, t.mesh_faces,
+            stiffness=tuple(float(v) for v in stiff[:3]), capacity=vcap,
+            edge_capacity=ecap, tri_capacity=tcap,
+            degree_capacity=MESH_DEGREE_CAPACITY, device="cpu"))
+        pos, vel, inv = _mesh_positions(t, n, vcap)
+        pos_l.append(pos.T)
+        vel_l.append(vel.T)
+        inv_l.append(inv)
+        act_l.append(np.arange(vcap) < n)
+    topo = MeshTopology.cat(topos).to(dev)
+    return topo, _parked_state(pos_l, vel_l, inv_l, act_l, dev)
+
+
+def flatten_positions(dimx: int, dimy: int) -> np.ndarray:
+    """(dimx * dimy, 3) float64 flat layout centred at the origin one
+    particle radius up, canonical order (flatten_positions,
+    scene.py:202-214: linspace over dim * radius)."""
+    px = np.linspace(0, dimx * PARTICLE_RADIUS, dimx)
+    pz = np.linspace(0, dimy * PARTICLE_RADIUS, dimy)
+    zz, xx = np.meshgrid(pz, px, indexing="ij")
+    pos = np.stack([xx, np.full_like(xx, PARTICLE_RADIUS), zz],
+                   -1).reshape(-1, 3)
+    pos[:, [0, 2]] -= pos[:, [0, 2]].mean(0, keepdims=True)
+    return pos
+
+
 def flat_tasks(sizes, cloth_mass: float = 0.5) -> list:
     """Flat rectangular cloths centred at the origin one particle radius
     above the floor (set_to_flatten layout, scene.py:202-214)."""
     tasks = []
     for dimx, dimy in sizes:
-        px = np.linspace(0, dimx * PARTICLE_RADIUS, dimx)
-        pz = np.linspace(0, dimy * PARTICLE_RADIUS, dimy)
-        zz, xx = np.meshgrid(pz, px, indexing="ij")
-        pos = np.stack([xx, np.full_like(xx, PARTICLE_RADIUS), zz],
-                       -1).reshape(-1, 3)
-        pos[:, [0, 2]] -= pos[:, [0, 2]].mean(0, keepdims=True)
+        pos = flatten_positions(dimx, dimy)
         n = dimx * dimy
         pp = np.concatenate([pos, np.full((n, 1), n / cloth_mass)], 1)
         tasks.append(Task(cloth_size=(dimx, dimy),

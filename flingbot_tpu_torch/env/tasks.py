@@ -1,6 +1,7 @@
 """Task model, task files and task generation (counterpart of
 flingbot_tpu/env/tasks.py: Task, TaskLoader, the topology bucket
-detection, write_task and the batched generator generate_tasks_batch).
+detection, write_task, the batched generator generate_tasks_batch and the
+sequential generator generate_tasks).
 
 The JAX package's task sets are flingbot-format HDF5 files; the port reads
 them as the `.npz` archives that `tools/export_tasks_npz.py` writes (one
@@ -14,6 +15,13 @@ scripts/generate_sets_r3.py: the fused substeps kernel, sorted-window
 contacts, Chebyshev springs):
 
     python -m flingbot_tpu_torch.env.tasks --path tasks.npz --num_tasks 64
+
+or one task at a time with the sequential generator, which the shirt set
+needs (solver.step's JAX defaults: the xla backend, Gauss-Seidel springs,
+block contacts every substep):
+
+    python -m flingbot_tpu_torch.env.tasks --path shirts.npz --num_tasks 16 \
+        --cloth_type mesh --cloth_mesh_path data/shirts --seed 500
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import argparse
 import dataclasses
 import hashlib
 import os
+import random
 import shutil
 import time
 import zipfile
@@ -36,17 +45,13 @@ from flingbot_tpu_torch.engine.state import (
     FLEX_SCENE_FRICTION, PARTICLE_RADIUS, ClothState, SolverParams, f32,
     where_state)
 from flingbot_tpu_torch.engine.topology import (
-    MESH_KEYS, compute_layered_spec, grid_positions)
+    MESH_KEYS, compute_layered_spec, grid_positions, load_cloth)
 from flingbot_tpu_torch.env import scene
 from flingbot_tpu_torch.env.coverage import get_current_covered_area
+from flingbot_tpu_torch.env.scene import (
+    MESH_EDGE_CAPACITY, MESH_TRI_CAPACITY, MESH_VERT_CAPACITY)
 
 ATTR_PREFIX = "@"
-
-# padded capacities of the generic mesh path (flingbot_tpu/env/scene.py:
-# MESH_*_CAPACITY), the ceilings of detect_mesh_caps
-MESH_VERT_CAPACITY = 8192
-MESH_EDGE_CAPACITY = 65536
-MESH_TRI_CAPACITY = 16384
 
 
 class Task:
@@ -250,7 +255,7 @@ def detect_layered_spec(npz_path: str):
 def detect_topology_buckets(npz_path: str) -> Dict:
     """BatchSimEnv keywords for a task file: grid files -> both None;
     lattice shirt files -> layered_spec; other meshes -> mesh_caps (the
-    generic mesh path, which the port does not have) (tasks.py:248-256)."""
+    generic mesh path) (tasks.py:248-256)."""
     spec = detect_layered_spec(npz_path)
     if spec is not None:
         return {"mesh_caps": None, "layered_spec": spec}
@@ -319,6 +324,16 @@ def append_tasks(npz_path: str, tasks: List[Dict]) -> int:
 GEN_SIM_KW = dict(substeps=4, iterations=30, self_collision=True,
                   contact_every=2, contact_iterations=8, contact_window=16,
                   spring_mode="chebyshev")
+# the sequential generator's: solver.step's own defaults
+# (solver.py:494-512), which _sim_n leaves as they are (tasks.py:298)
+SEQ_SIM_KW = dict(substeps=4, iterations=30, self_collision=True,
+                  spring_mode="gs", contact_mode="block",
+                  contact_iterations=8, contact_every=1, resort_interval=4,
+                  backend="xla", contact_window=16)
+# the sequential generator's frames (tasks.py:406, 443, 451-456, 460-466,
+# 306-307): (mesh drop, hard sweep, hard hold checks of 10 frames, easy
+# toss sweep, easy tosses, settle)
+SEQ_SCHEDULE = (40, 200, 30, 100, 10, 300)
 # the dynamic friction of the generator's entry points: the FleX scene's,
 # at which the JAX package's committed sets were made (PARITY.md); at the
 # production 0.1, SolverParams' default, the crumples come out near flat
@@ -328,12 +343,6 @@ SCHEDULES = {"hard": (200, 120, 300, 10), "easy": (100, 0, 300, 10)}
 SETTLE_TOL = 1e-2  # max |v| under which an env has settled (m/s)
 MAX_TASK_HEIGHT = 0.4  # a task with a particle above it is dropped (m)
 PARKED = -10.0  # picker positions of a generator state (ClothState.create)
-
-
-def not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to flingbot_tpu_torch (ROADMAP Queue 1, "
-        f"{item})")
 
 
 @dataclasses.dataclass
@@ -596,21 +605,17 @@ def generate_tasks_batch(
     Resumable: an existing archive's tasks count, and the draws restart
     from seed + that count.  A task with a particle above MAX_TASK_HEIGHT
     after the settle is dropped.  schedule = (sweep, hold, settle[,
-    tosses]) overrides the difficulty's (SCHEDULES).  The step is the
-    pallas backend's (backend "pallas", spring_mode "gs" or "chebyshev",
-    contact_mode "sort"); the batch runs on `device`, CUDA unless the
-    caller asks for the CPU.  Returns the number of tasks in the file."""
+    tosses]) overrides the difficulty's (SCHEDULES).  backend,
+    spring_mode and contact_mode go to solver.step (on the pallas backend
+    "gs" runs as Chebyshev and every contact mode as "sort"); the batch
+    runs on `device`, CUDA unless the caller asks for the CPU.  Returns
+    the number of tasks in the file."""
     if task_difficulty not in SCHEDULES:
         raise ValueError(f"unknown task_difficulty {task_difficulty!r}")
-    for name, value, ported in (("backend", backend, ("pallas",)),
-                                ("spring_mode", spring_mode,
-                                 ("gs", "chebyshev")),
-                                ("contact_mode", contact_mode, ("sort",))):
-        if value not in ported:
-            not_ported(f"{name}={value!r}", "item 10")
     dev = resolve_device(device)
     params = solver_params if solver_params is not None else SolverParams()
-    sim_kw = GEN_SIM_KW
+    sim_kw = dict(GEN_SIM_KW, backend=backend, spring_mode=spring_mode,
+                  contact_mode=contact_mode)
     sweep, hold, settle, tosses = SCHEDULES[task_difficulty]
     if schedule is not None:
         sweep, hold, settle = schedule[:3]
@@ -673,23 +678,265 @@ def generate_tasks_batch(
     return count
 
 
+# --------------------------------------------------------------------------
+# the sequential generator (generate_tasks, tasks.py:281-503, 921-949)
+# --------------------------------------------------------------------------
+
+def sim_n(state: ClothState, topo, params: SolverParams, n: int,
+          anchor_slot: Optional[int] = None, anchor_pos=None,
+          sim_kw: dict = SEQ_SIM_KW) -> ClothState:
+    """n solver frames of a one-env batch; with an anchor, particle slot
+    `anchor_slot` is set at rest to anchor_pos (3,) f32 before each frame
+    (_sim_n, tasks.py:281-303: the generator's pickpoint)."""
+    if anchor_slot is not None:
+        state = owned(state)
+    for _ in range(n):
+        if anchor_slot is not None:
+            state.positions[0, :, anchor_slot] = anchor_pos
+            state.velocities[0, :, anchor_slot] = 0.0
+        state = solver_step(state, topo, params, **sim_kw)
+    return state
+
+
+def wait_until_stable(state: ClothState, topo, params: SolverParams,
+                      max_steps: int = 300, tolerance: float = 1e-2,
+                      chunk: int = 10, sim_kw: dict = SEQ_SIM_KW):
+    """Step in chunks of `chunk` frames until the largest |velocity
+    component| is under tolerance (wait_until_stable, tasks.py:306-322).
+    Returns (state, settled)."""
+    for _ in range(max_steps // chunk):
+        state = sim_n(state, topo, params, chunk, sim_kw=sim_kw)
+        if float(max_speed(state)[0]) < tolerance:
+            return state, True
+    return state, False
+
+
+def pick_obj(cloth_mesh_path: str) -> str:
+    """The OBJ of a mesh task: Python's `random.choice` over the
+    *_processed.obj files under cloth_mesh_path in Path.rglob order, as
+    the JAX generator picks it (tasks.py:355-356; `random` is not seeded
+    by the generator, so its caller seeds it for a reproducible pick)."""
+    from pathlib import Path
+
+    objs = list(Path(cloth_mesh_path).rglob("*_processed.obj"))
+    return str(random.choice(objs))
+
+
+def generate_randomization(
+    rng: np.random.Generator,
+    min_cloth_size: int = 64,
+    max_cloth_size: int = 104,
+    strict_min_edge_length: int = 64,
+    task_difficulty: str = "hard",
+    cloth_type: str = "square",
+    cloth_mesh_path: Optional[str] = None,
+    params: Optional[SolverParams] = None,
+    max_grid_dim: int = 104,
+    mesh_caps=None,
+    schedule=SEQ_SCHEDULE,
+    sim_kw: dict = SEQ_SIM_KW,
+    device="cuda",
+) -> Optional[Dict]:
+    """One crumpled-cloth task, drawn and simulated on its own
+    (generate_randomization, tasks.py:325-503), at solver.step's JAX
+    defaults (SEQ_SIM_KW).  The numpy draws come in the JAX generator's
+    order: the dims (rejected while both edges are under
+    strict_min_edge_length; a mesh keeps -1, -1), stiffness U(0.85,
+    0.95)^3, mass U(0.2, 2.0), then the pick.
+
+    square: the cloth laid flat (flatten_positions); mesh: an OBJ picked
+    by pick_obj, its rest pose lifted 0.1 m, then 40 frames of drop.  The
+    cloth is centred; 'hard' sweeps one particle (inverse mass 0) to a
+    height U(0.5, 1.5) over 200 frames and holds it, 10 frames at a time,
+    until the largest velocity component is under 0.1 m/s (<= 300
+    frames); 'easy' sweeps 10 particles by U(-0.2, 0.2) in x and z and 0.2
+    up, 100 frames each.  Then wait_until_stable; a task with a particle
+    above MAX_TASK_HEIGHT is dropped (None); the cloth is centred again.
+    A mesh runs through the generic mesh path at mesh_caps (default: the
+    MESH_*_CAPACITY ceilings); a square cloth on the max_grid_dim
+    lattice.  schedule (SEQ_SCHEDULE) and sim_kw (SEQ_SIM_KW) default to
+    the JAX generator's.  The state lives on `device`."""
+    params = params or SolverParams()
+    drop, sweep, hold_checks, toss_sweep, tosses, settle = schedule
+    dev = resolve_device(device)
+    dimx = int(rng.integers(min_cloth_size, max_cloth_size))
+    dimy = int(rng.integers(min_cloth_size, max_cloth_size))
+    if dimx < strict_min_edge_length and dimy < strict_min_edge_length:
+        return None
+    mesh = cloth_type == "mesh"
+    if mesh:
+        if cloth_mesh_path is None:
+            raise ValueError("cloth_type 'mesh' needs cloth_mesh_path")
+        verts, faces, se, be, she = load_cloth(pick_obj(cloth_mesh_path))
+        mesh_arrays = dict(
+            mesh_verts=verts.reshape(-1), mesh_stretch_edges=se.reshape(-1),
+            mesh_bend_edges=be.reshape(-1), mesh_shear_edges=she.reshape(-1),
+            mesh_faces=faces.reshape(-1))
+        dimx, dimy = -1, -1
+        num_particles = verts.shape[0]
+        # flattened area ~ half the two-sided mesh area (tasks.py:367-374)
+        tri = verts[faces]
+        flattened_area = float(0.5 * np.linalg.norm(np.cross(
+            tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]),
+            axis=1).sum() / 2)
+    elif cloth_type == "square":
+        mesh_arrays = {k: np.array([]) for k in MESH_KEYS}
+        num_particles = dimx * dimy
+    else:
+        raise ValueError(f"unknown cloth_type {cloth_type!r}")
+    stiffness = rng.uniform(0.85, 0.95, 3)
+    cloth_mass = float(rng.uniform(0.2, 2.0))
+    common = dict(cloth_mass=cloth_mass, cloth_stiff=stiffness,
+                  cloth_pos=(0.0, 1.0, 0.0))
+    n = num_particles
+    if mesh:
+        pos = np.asarray(mesh_arrays["mesh_verts"], np.float32).reshape(-1, 3)
+        pos[:, 1] += 0.1
+        inv = np.full((n, 1), n / cloth_mass, np.float32)
+        task = scene.ShirtTask(
+            **{k: mesh_arrays[k] for k in MESH_KEYS},
+            particle_pos=np.concatenate([pos, inv], 1).reshape(-1), **common)
+        topo, state = scene.make_batch(
+            [task], device=dev, mesh_caps=mesh_caps or (
+                MESH_VERT_CAPACITY, MESH_EDGE_CAPACITY, MESH_TRI_CAPACITY))
+        slots = np.arange(n)
+    else:
+        flat = scene.flatten_positions(dimx, dimy).astype(np.float32)
+        inv = np.full((n, 1), n / cloth_mass, np.float32)
+        task = scene.Task(cloth_size=(dimx, dimy), particle_pos=np.concatenate(
+            [flat, inv], 1).reshape(-1), **common)
+        topo, state = scene.make_batch([task], max_grid_dim=max_grid_dim,
+                                       device=dev)
+        slots = lattice_slot(np.arange(n), dimx, max_grid_dim)
+    # the generator's states keep ClothState.create's pickers, far away
+    state = state.replace(picker_pos=torch.full_like(state.picker_pos,
+                                                     PARKED))
+    if mesh:
+        state = sim_n(state, topo, params, drop, sim_kw=sim_kw)
+    else:
+        flattened_area = float(get_current_covered_area(state.positions,
+                                                        state.active)[0])
+    state = center(state)
+
+    def anchored_sweep(state, slot, start, target, n_move):
+        """Drag particle `slot` from start to target over n_move frames
+        with its inverse mass pinned to 0 (tasks.py:426-436)."""
+        saved_w = float(state.inv_mass[0, slot])
+        state = owned(state)
+        state.inv_mass[0, slot] = 0.0
+        for j in range(n_move):
+            p = torch.tensor(start + (target - start) * (j / n_move),
+                             dtype=torch.float32, device=dev)
+            state = sim_n(state, topo, params, 1, anchor_slot=slot,
+                          anchor_pos=p, sim_kw=sim_kw)
+        return state, saved_w
+
+    def restore(state, slot, w):
+        state = owned(state)
+        state.inv_mass[0, slot] = w
+        return state
+
+    def position(state, slot):
+        return state.positions[0, :, slot].cpu().numpy()
+
+    if task_difficulty == "hard":
+        slot = int(slots[int(rng.integers(0, num_particles))])
+        height = float(rng.random() * 1.0 + 0.5)
+        start = position(state, slot)
+        target = np.array([start[0], height, start[2]])
+        state, saved_w = anchored_sweep(state, slot, start, target, sweep)
+        hold = torch.tensor(target, dtype=torch.float32, device=dev)
+        for _ in range(hold_checks):
+            state = sim_n(state, topo, params, 10, anchor_slot=slot,
+                          anchor_pos=hold, sim_kw=sim_kw)
+            if float(max_speed(state)[0]) < 1e-1:
+                break
+        state = restore(state, slot, saved_w)
+    elif task_difficulty == "easy":
+        for _ in range(tosses):
+            slot = int(slots[int(rng.integers(0, num_particles))])
+            displacement = rng.uniform(-0.2, 0.2, 3)
+            displacement[1] = 0.2
+            start = position(state, slot)
+            state, saved_w = anchored_sweep(state, slot, start,
+                                            start + displacement, toss_sweep)
+            state = restore(state, slot, saved_w)
+    else:
+        raise ValueError(f"unknown task_difficulty {task_difficulty!r}")
+    state, _ = wait_until_stable(state, topo, params, max_steps=settle,
+                                 sim_kw=sim_kw)
+    heights = state.positions[0, 1][state.active[0]]
+    if float(heights.max()) > MAX_TASK_HEIGHT:
+        return None  # probably an error (tasks.py:473-475)
+    state = center(state)
+    coverage = float(get_current_covered_area(state.positions,
+                                              state.active)[0])
+    idx = torch.as_tensor(slots, device=dev)
+    pos = state.positions[0][:, idx].T.cpu().numpy()
+    inv = state.inv_mass[0][idx].cpu().numpy()
+    return {
+        "particle_pos": np.concatenate([pos, inv[:, None]], 1).reshape(-1),
+        "particle_vel": state.velocities[0][:, idx].T.cpu().numpy()
+        .reshape(-1),
+        "initial_coverage": coverage,
+        "shape_pos": np.zeros(2 * 14, np.float32),
+        "phase": np.zeros(n, np.int32),
+        "flatten_area": float(flattened_area),
+        "flip_mesh": 0,
+        "cloth_size": np.array([dimx, dimy]),
+        "cloth_stiff": stiffness,
+        "cloth_mass": cloth_mass,
+        # shirts keep their own difficulty tag (tasks.py:478-482)
+        "task_difficulty": "shirt" if mesh else task_difficulty,
+        **mesh_arrays,
+    }
+
+
+def generate_tasks(path: str, num_tasks: int, seed: int = 0,
+                   log: bool = True, **kwargs) -> int:
+    """Generate tasks one at a time into the task archive `path` until it
+    holds num_tasks (generate_tasks, tasks.py:921-949): resumable, the
+    draws restart from np.random.default_rng(seed + the tasks already in
+    the file); a rejected draw is skipped.  kwargs go to
+    generate_randomization.  Returns the number of tasks in the file."""
+    count = count_tasks(path)
+    if count:
+        print(f"[generate_tasks] resuming: {count} tasks exist", flush=True)
+    rng = np.random.default_rng(seed + count)
+    while count < num_tasks:
+        t0 = time.perf_counter()
+        task = generate_randomization(rng, **kwargs)
+        if task is None:
+            continue
+        count = append_tasks(path, [task])
+        if log:
+            print(f"[generate_tasks] {count}/{num_tasks} "
+                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    return count
+
+
 def main(argv=None) -> int:
-    """The task generation CLI (tasks.py:952-991), batched path only."""
+    """The task generation CLI (tasks.py:952-991)."""
     p = argparse.ArgumentParser(
         "python -m flingbot_tpu_torch.env.tasks",
-        description="Generate square-cloth tasks into a task archive "
-        "(.npz, read by TaskLoader) on the card.  The defaults are the "
-        "configuration scripts/generate_sets_r3.py runs (backend pallas, "
-        "contact_mode sort, spring_mode gs, which the pallas step runs "
-        "as Chebyshev), not the JAX CLI's xla / block, and the friction "
-        "of the JAX package's committed sets (--gen_fric), not the "
-        "production 0.1.")
+        description="Generate tasks into a task archive (.npz, read by "
+        "TaskLoader) on the card.  Square cloths go through the batched "
+        "generator, whose defaults are the configuration "
+        "scripts/generate_sets_r3.py runs (backend pallas, contact_mode "
+        "sort, spring_mode gs, which the pallas step runs as Chebyshev), "
+        "not the JAX CLI's xla / block; --sequential and --cloth_type "
+        "mesh take the sequential generator at solver.step's JAX "
+        "defaults.  Both run at the friction of the JAX package's "
+        "committed rectangle sets (--gen_fric), not the production 0.1.")
     p.add_argument("--path", required=True)
     p.add_argument("--num_tasks", type=int, default=200)
     p.add_argument("--task_difficulty", default="hard",
                    choices=["hard", "easy"])
     p.add_argument("--cloth_type", default="square",
                    choices=["square", "mesh"])
+    p.add_argument("--cloth_mesh_path", default=None,
+                   help="directory searched for *_processed.obj meshes "
+                   "(--cloth_type mesh)")
     p.add_argument("--min_cloth_size", type=int, default=64)
     p.add_argument("--max_cloth_size", type=int, default=104)
     p.add_argument("--strict_min_edge_length", type=int, default=64)
@@ -703,23 +950,26 @@ def main(argv=None) -> int:
                    help="dynamic friction during generation (default "
                    "%(default)s)")
     p.add_argument("--sequential", action="store_true",
-                   help="the per-task generator (not ported)")
+                   help="use the per-task generator (required for mesh)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
-    if a.sequential:
-        not_ported("the sequential generator (generate_tasks)",
-                   "items 9-10")
-    if a.cloth_type == "mesh":
-        not_ported("mesh (shirt) task generation", "items 9-10")
+    params = SolverParams(dynamic_friction=f32(a.gen_fric))
+    if a.sequential or a.cloth_type == "mesh":
+        return generate_tasks(
+            a.path, a.num_tasks, seed=a.seed,
+            min_cloth_size=a.min_cloth_size,
+            max_cloth_size=a.max_cloth_size,
+            strict_min_edge_length=a.strict_min_edge_length,
+            task_difficulty=a.task_difficulty, cloth_type=a.cloth_type,
+            cloth_mesh_path=a.cloth_mesh_path, max_grid_dim=a.max_grid_dim,
+            params=params, device=a.device)
     return generate_tasks_batch(
         a.path, a.num_tasks, batch=a.batch, seed=a.seed,
         min_cloth_size=a.min_cloth_size, max_cloth_size=a.max_cloth_size,
         strict_min_edge_length=a.strict_min_edge_length,
         task_difficulty=a.task_difficulty, max_grid_dim=a.max_grid_dim,
         backend=a.backend, spring_mode=a.spring_mode,
-        contact_mode=a.contact_mode,
-        solver_params=SolverParams(dynamic_friction=f32(a.gen_fric)),
-        device=a.device)
+        contact_mode=a.contact_mode, solver_params=params, device=a.device)
 
 
 if __name__ == "__main__":

@@ -80,10 +80,11 @@ def parse_args(argv=None):
     p.add_argument("--episodes", type=int, default=None,
                    help="total episodes (default: one pass over the tasks)")
     # the production solver config (flingbot_tpu/utils/config.py)
-    p.add_argument("--backend", default="pallas", choices=["pallas"])
+    p.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     p.add_argument("--spring_mode", default="chebyshev",
                    choices=["gs", "jacobi", "chebyshev"])
-    p.add_argument("--contact_mode", default="sort", choices=["sort"])
+    p.add_argument("--contact_mode", default="sort",
+                   choices=["sort", "sweep", "block", "table"])
     p.add_argument("--substeps", type=int, default=4)
     p.add_argument("--iterations", type=int, default=16)
     p.add_argument("--contact_every", type=int, default=2)
@@ -105,7 +106,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, buckets=None):
+    """Runs the evaluation of argv.  buckets: BatchSimEnv's topology
+    buckets (layered_spec, mesh_caps); default: the task file's own
+    (tasks.detect_topology_buckets)."""
     args = parse_args(argv)
     if args.policy == "ckpt" and args.load is None:
         raise ValueError("--policy ckpt needs --load: a checkpoint")
@@ -130,19 +134,21 @@ def main(argv=None):
                                     device=device)
         load_checkpoint(args.load, policy)
     loader = TaskLoader(args.tasks, repeat=True)
+    if buckets is None:
+        buckets = detect_topology_buckets(args.tasks)
     with tempfile.TemporaryDirectory(suffix="_replay") as replay:
         env = BatchSimEnv(
             get_task_fn=loader.get_next_task, num_envs=args.num_envs,
             replay_buffer_path=replay, episode_length=args.steps,
-            max_grid_dim=args.max_grid_dim,
-            **detect_topology_buckets(args.tasks),
+            max_grid_dim=args.max_grid_dim, **buckets,
             obs_dim=64, num_rotations=args.num_rotations,
             scale_factors=args.scale_factors, render_dim=args.render_dim,
             substeps=args.substeps, iterations=args.iterations,
             contact_every=args.contact_every,
             contact_iterations=args.contact_iterations,
             contact_window=args.contact_window,
-            spring_mode=args.spring_mode,
+            spring_mode=args.spring_mode, backend=args.backend,
+            contact_mode=args.contact_mode,
             domain_randomization=args.domain_randomization,
             chunk_steps=args.chunk_steps, solver_params=params,
             seed=args.seed, device=device)

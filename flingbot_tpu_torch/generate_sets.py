@@ -1,7 +1,8 @@
-"""Generate the rectangle task sets on the card (counterpart of
+"""Generate the task sets on the card (counterpart of
 scripts/generate_sets_r3.py).
 
     python -m flingbot_tpu_torch.generate_sets --sets hard,easy,large,train512
+    python -m flingbot_tpu_torch.generate_sets --sets shirt
 
 Each set goes to `<out>/<name>.npz` (default out: data_torch/), a task
 archive that TaskLoader reads; an archive that exists is topped up to its
@@ -10,9 +11,14 @@ seeds, lattice), made by flingbot_tpu_torch.env.tasks.generate_tasks_batch
 with the fused substeps kernel, sorted-window contacts and Chebyshev
 springs, at the generator's friction (tasks.GEN_FRICTION, the FleX
 scene's 0.75), with which PARITY.md says every committed JAX set was
-made: at the production friction (0.1) the crumples come out near flat.  After each set one JSON line gives its
-statistics and wall seconds.  The shirt set needs the sequential generator, which is not
-ported.  Runs on the card; --device cpu runs the plain PyTorch path.
+made: at the production friction (0.1) the crumples come out near flat.
+The shirt set (16 hard shirt tasks, seed 500, from data/shirts) goes
+through the sequential generator, env.tasks.generate_tasks, as the JAX
+script makes it (generate_sets_r3.py:87-96), at the same --gen_fric; the
+JAX script passes that generator no friction, which is the production 0.1
+(--gen_fric 0.1).  After each set one JSON line gives its statistics and
+wall seconds.  Runs on the card; --device cpu runs the plain PyTorch
+path.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 
 from flingbot_tpu_torch.engine.state import SolverParams, f32
 from flingbot_tpu_torch.env.tasks import (
-    GEN_FRICTION, generate_tasks_batch, not_ported, read_task_arrays)
+    GEN_FRICTION, generate_tasks, generate_tasks_batch, read_task_arrays)
 
 SETS = {
     # name: (file, num, difficulty, min_size, max_size, strict_min,
@@ -40,6 +46,8 @@ SETS = {
     # seed of `train`, 512 tasks
     "train512": ("rect_train_512.npz", 512, "hard", 64, 104, 64, 104, 400),
 }
+# the shirt set: (file, num, difficulty, seed), sequential, mesh cloths
+SHIRT_SET = ("shirt_eval_16.npz", 16, "hard", 500)
 
 
 def coverages(path: str):
@@ -88,8 +96,17 @@ def main(argv=None):
     stats = {}
     for name in a.sets.split(","):
         if name == "shirt":
-            not_ported("the shirt set (the sequential generator)",
-                       "items 9-10")
+            file, num, diff, seed = SHIRT_SET
+            path = os.path.join(a.out, file)
+            print(f"=== shirt: {num} mesh tasks -> {path}", flush=True)
+            t0 = time.perf_counter()
+            generate_tasks(path, num, seed=seed, task_difficulty=diff,
+                           cloth_type="mesh", cloth_mesh_path="data/shirts",
+                           params=params, device=a.device)
+            stats[name] = dict(set_stats(path),
+                               seconds=round(time.perf_counter() - t0, 2))
+            print(f"[{name}] {json.dumps(stats[name])}", flush=True)
+            continue
         file, num, diff, mins, maxs, strict, grid, seed = SETS[name]
         path = os.path.join(a.out, file)
         batch = min(a.batch, max(32, num))

@@ -139,7 +139,8 @@ def main(argv=None, max_rounds=None):
         contact_every=args.contact_every,
         contact_iterations=args.contact_iterations,
         contact_window=args.contact_window, spring_mode=args.spring_mode,
-        self_collision=not args.no_self_collision,
+        self_collision=not args.no_self_collision, backend=args.backend,
+        contact_mode=args.contact_mode,
         domain_randomization=args.domain_randomization,
         fling_speed=args.fling_speed,
         fixed_fling_height=args.fixed_fling_height,

@@ -2,9 +2,12 @@
 flingbot_tpu/utils/config.py): the same training, eval and env flags with
 the same defaults, plus --device.
 
-Flags whose results the port cannot reproduce raise NotImplementedError
-in apply_presets when set to anything but their default, naming the
-ROADMAP item that ports them.  The JAX package's TPU execution knobs
+A flag whose results the port cannot reproduce raises
+NotImplementedError in apply_presets when set to anything but its
+default, naming the ROADMAP item that ports it: only
+--dump_visualizations (the episode videos) is left.  --backend xla runs
+the plain PyTorch counterpart of the JAX package's kernel-free backend,
+with every --contact_mode.  The JAX package's TPU execution knobs
 (--exec_mode, --chunk_loop, --env_chunk, --obs_chunk, --dp_devices) do
 not change results; they are accepted and ignored.
 """
@@ -113,15 +116,17 @@ def config_parser(parser: ArgumentParser = None) -> ArgumentParser:
                         default="chebyshev")
     parser.add_argument("--backend", choices=["xla", "pallas"],
                         default="pallas",
-                        help="pallas: the port's CUDA kernels (xla is not "
-                             "ported)")
+                        help="pallas: the port's CUDA kernels; xla: the "
+                             "plain PyTorch counterpart of the JAX "
+                             "package's kernel-free backend")
     parser.add_argument("--substeps", type=int, default=4)
     parser.add_argument("--iterations", type=int, default=16)
     parser.add_argument("--contact_mode",
                         choices=["sort", "sweep", "block", "table"],
                         default="sort",
-                        help="self-collision strategy (the port has the "
-                             "sorted-window kernel, sort)")
+                        help="self-collision strategy on the xla backend "
+                             "and on generic meshes (the pallas grid step "
+                             "and layered shirts always sort)")
     parser.add_argument("--contact_every", type=int, default=2)
     parser.add_argument("--contact_iterations", type=int, default=4)
     parser.add_argument("--contact_window", type=int, default=12)
@@ -153,8 +158,6 @@ def config_parser(parser: ArgumentParser = None) -> ArgumentParser:
 
 # flag -> (its default, the ROADMAP item that ports the other values)
 _UNPORTED = {
-    "backend": ("pallas", "Queue 1 item 10"),
-    "contact_mode": ("sort", "Queue 1 item 10"),
     "dump_visualizations": (False, "Queue 1 item 7"),
 }
 

@@ -94,13 +94,29 @@ def test_aero_grid_frame_matches_pallas():
     ({"drag": 1.0}, "aero"), ({"lift": 0.5}, "aero"),
     ({"picker_friction": 0.75}, "picker_friction")])
 def test_unported_knobs_on_a_layered_batch_raise(knob, match, tmp_path):
-    """Layered shirts have no aero and no picker friction in the port: a
-    caller who sets them gets an error, not a silent no-op."""
+    """Layered shirts raised NotImplementedError for aero and picker
+    friction until the mesh normals and the picker friction were ported:
+    now each knob acts on the frame (tests/test_torch_mesh.py holds them
+    against the JAX _step_layered), never as a silent no-op.  The name
+    is that of the refusal this test held until then."""
     path = str(tmp_path / "shirt_processed.obj")
     write_shirt_obj(path, body_w=0.1, body_h=0.1, sleeve_l=0.04,
                     sleeve_h=0.04, collar_w=0.04, spacing=0.0125)
     topo, state = make_batch([shirt_task(path)], device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        step(state, topo, SolverParams(**knob), **KW)
+    # the shirt moving through the air, so that drag and lift act
+    v = torch.tensor([0.5, -1.0, 0.2]).view(1, 3, 1)
+    state = state.replace(velocities=torch.where(state.active[:, None], v,
+                                                 0.0))
+    if match == "picker_friction":  # a picker pressing on the shirt
+        i = int(torch.nonzero(state.active[0])[0])
+        pick = state.picker_pos.clone()
+        pick[0, 0] = state.positions[0, :, i] + torch.tensor([0.0, 0.015,
+                                                              0.0])
+        state = state.replace(picker_pos=pick)
+    out = step(state, topo, SolverParams(**knob), **KW)
+    plain = step(state, topo, SolverParams(), **KW)
+    assert bool(torch.isfinite(out.positions).all())
+    assert float((out.velocities - plain.velocities).abs().max()) > 1e-4
     # wind alone exerts nothing (it acts through drag and lift)
-    step(state, topo, SolverParams(wind=(1.0, 0.0, 0.0)), **KW)
+    windy = step(state, topo, SolverParams(wind=(1.0, 0.0, 0.0)), **KW)
+    assert torch.equal(windy.positions, plain.positions)

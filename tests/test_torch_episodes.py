@@ -184,3 +184,38 @@ def test_env_knobs_reach_the_solver(task_files):
 def test_unknown_spring_mode_raises():
     with pytest.raises(ValueError, match="spring_mode"):
         BatchSimEnv(spring_mode="sor", device="cpu")
+
+
+def test_step_in_parts_equals_step(task_files, tmp_path):
+    """BatchSimEnv.step is begin_step, run_program chunks and end_step:
+    driven by hand from the same start, the parts give step()'s state,
+    observation, step record and replay Memory (exactly: one CPU, one
+    seed)."""
+    _, npz, _ = task_files
+    envs = [port_env(npz, replay=str(tmp_path / f"replay{i}"),
+                     chunk_steps=16, **CHEAP) for i in range(2)]
+    vm = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(2, 1, 8, 32, 32)).astype(np.float32))
+    for env in envs:
+        env.reset()
+    whole = envs[0].step(vm)
+    env = envs[1]
+    start = env.begin_step(vm)
+    assert torch.equal(env.state.positions, start.pre_positions)
+    carry, chunks = start.carry, 0
+    while True:
+        carry, done = env.run_program(start, carry, 16)
+        chunks += 1
+        if bool(done.all()):
+            break
+    parts = env.end_step(start, carry, chunks)
+    assert torch.equal(whole, parts)
+    assert torch.equal(envs[0].state.positions, env.state.positions)
+    a, b = envs[0].last, env.last
+    assert a.chunks == b.chunks == chunks
+    for x, y in zip(tuple(a.selection) + tuple(a[1:5]),
+                    tuple(b.selection) + tuple(b[1:5])):
+        assert torch.equal(x, y)
+    assert list(envs[0].timesteps) == list(env.timesteps) == [1, 1]
+    for m0, m1 in zip(envs[0].memories, env.memories):
+        assert len(m0) == len(m1) == 1

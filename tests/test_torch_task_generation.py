@@ -404,27 +404,69 @@ def test_port_archive_loads_into_the_env(tmp_path):
     assert stats["ratio_mean"] == round(float(np.mean(ratios)), 4)
 
 
-@pytest.mark.parametrize("call", [
-    lambda p: ttasks.generate_tasks_batch(p, 1, backend="xla",
-                                          device="cpu"),
-    lambda p: ttasks.generate_tasks_batch(p, 1, spring_mode="jacobi",
-                                          device="cpu"),
-    lambda p: ttasks.generate_tasks_batch(p, 1, contact_mode="block",
-                                          device="cpu"),
-    lambda p: ttasks.main(["--path", p, "--sequential", "--device", "cpu"]),
-    lambda p: ttasks.main(["--path", p, "--cloth_type", "mesh",
-                           "--device", "cpu"]),
-    lambda p: __import__("flingbot_tpu_torch.generate_sets",
-                         fromlist=["main"]).main(
-        ["--sets", "shirt", "--out", os.path.dirname(p),
-         "--device", "cpu"]),
-], ids=["backend", "spring_mode", "contact_mode", "sequential", "mesh",
-        "shirt_set"])
-def test_unported_options_raise(call, tmp_path):
-    path = str(tmp_path / "none.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item"):
-        call(path)
-    assert not os.path.exists(path)
+# each option the port refused until the xla backend and the sequential
+# generator were ported: (the call, what must reach the generator)
+OPTIONS = {
+    "backend": (dict(backend="xla"), dict(backend="xla")),
+    "spring_mode": (dict(spring_mode="jacobi"), dict(spring_mode="jacobi")),
+    "contact_mode": (dict(backend="xla", contact_mode="block"),
+                     dict(contact_mode="block")),
+    "sequential": (["--sequential"], dict(cloth_type="square")),
+    "mesh": (["--cloth_type", "mesh", "--cloth_mesh_path", "data/shirts"],
+             dict(cloth_type="mesh", cloth_mesh_path="data/shirts")),
+    "shirt_set": (["--sets", "shirt"],
+                  dict(cloth_type="mesh", cloth_mesh_path="data/shirts",
+                       task_difficulty="hard", seed=500)),
+}
+
+
+@pytest.mark.parametrize("which", list(OPTIONS), ids=list(OPTIONS))
+def test_unported_options_raise(which, tmp_path, monkeypatch):
+    """The options that raised NotImplementedError before the xla backend
+    and the sequential generator were ported now reach them: the batched
+    generator runs a tiny batch with its step keywords; the CLI's
+    --sequential / --cloth_type mesh and generate_sets' shirt set call
+    generate_tasks with the JAX script's arguments (recorded here: a CPU
+    run at their full sizes takes hours).  The name is that of the
+    refusals this test held until then."""
+    path = str(tmp_path / "tasks.npz")
+    call, want = OPTIONS[which]
+    seen = {}
+    if isinstance(call, dict):
+        step = ttasks.solver_step
+
+        def recording_step(state, topo, params, **kw):
+            seen.update(kw)
+            return step(state, topo, params, **kw)
+
+        monkeypatch.setattr(ttasks, "solver_step", recording_step)
+        assert ttasks.generate_tasks_batch(
+            path, 1, batch=1, max_grid_dim=LATTICE, schedule=TINY,
+            device="cpu", **SIZES, **call) == 1
+        assert ttasks.count_tasks(path) == 1
+    else:
+        from flingbot_tpu_torch import generate_sets
+
+        def recording_generate(p, num, **kw):
+            seen.update(kw, num=num)
+            return ttasks.append_tasks(p, [{"initial_coverage": 0.5,
+                                            "flatten_area": 1.0}])
+
+        monkeypatch.setattr(ttasks, "generate_tasks", recording_generate)
+        monkeypatch.setattr(generate_sets, "generate_tasks",
+                            recording_generate)
+        if which == "shirt_set":
+            stats = generate_sets.main(call + ["--out", str(tmp_path),
+                                               "--device", "cpu"])
+            assert stats["shirt"]["n"] == 1 and seen["num"] == 16
+        else:
+            ttasks.main(["--path", path, "--num_tasks", "3",
+                         "--device", "cpu"] + call)
+            assert seen["num"] == 3
+        assert seen["params"].dynamic_friction == np.float32(
+            ttasks.GEN_FRICTION)
+    for k, v in want.items():
+        assert seen[k] == v, (k, seen.get(k))
 
 
 # --------------------------------------------------------------------------

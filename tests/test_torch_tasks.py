@@ -174,9 +174,17 @@ def test_scene_from_shirt_tasks_matches_set_scene(exported):
 
 
 def test_generic_mesh_buckets_raise():
-    with pytest.raises(NotImplementedError, match="generic mesh path"):
+    """A mesh_caps bucket was refused until the generic mesh path was
+    ported: now the env takes it, and refuses only a bucket given with a
+    layered spec (tests/test_torch_mesh.py steps such an env).  The name
+    is that of the refusal this test held until then."""
+    env = BatchSimEnv(get_task_fn=lambda: None, num_envs=1,
+                      mesh_caps=(3328, 32768, 6400), device="cpu")
+    assert env.mesh_caps == (3328, 32768, 6400)
+    with pytest.raises(ValueError, match="either mesh_caps"):
         BatchSimEnv(get_task_fn=lambda: None, num_envs=1,
-                    mesh_caps=(3328, 32768, 6400), device="cpu")
+                    mesh_caps=(3328, 32768, 6400), layered_spec=object(),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("which", ["rect", "shirt"])
