@@ -22,8 +22,11 @@ Phases, each printed on its own line with its wall seconds:
      both); the mesh mode of the contacts kernel at the generic mesh
      path's shape (contacts_mesh_generic: the 16 shirts of the shirt eval
      set built as a MeshTopology padded to detect_mesh_caps' vertex
-     capacity); plus one aero frame of 4 of the grid kernels' compressed
-     synthetic cloths on the card against the plain path on the CPU
+     capacity); the single env's launches (substeps_single,
+     contacts_single: B = 1, one cloth of the hard eval set's first
+     task's dims on the 104 lattice, at the main path's knobs); plus one
+     aero frame of 4 of the grid kernels' compressed synthetic cloths on
+     the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
      operating point: 512 envs of 100x100, 4 substeps x 16 Chebyshev
      iterations, contacts 4/12/every 2 -> the rate of 5 windows of 20
@@ -48,8 +51,11 @@ Phases, each printed on its own line with its wall seconds:
      of 4 crumpled data/shirts/*.obj shirts on the card against the CPU
   7  the aero path: phase 4's start states with drag and lift set (an
      option of the solver; flingbot scenes run none): one frame of 4 envs
-     on the card against the CPU, then reset -> batch_value_maps -> step
-     through the one-substep launches
+     on the card against the CPU, then reset -> batch_value_maps -> a
+     step through the one-substep launches whose fling runs 18
+     interpreter steps, the last 16 profiled, before the step's end (the
+     whole fling ran here until phase 13 was added: the script keeps its
+     time)
   8  the eval path: one frame of 4 of the hard eval set's tasks
      (data_r3/rect_eval_hard_100.npz) on the card against the CPU; then
      episodes of 2 steps on that set in 16 env slots under heuristic
@@ -102,6 +108,20 @@ Phases, each printed on its own line with its wall seconds:
      shirt) at the full schedule from data/shirts, read back.  Fails if
      the mesh env never launches the contacts kernel, a frame disagrees,
      or the read-back differs
+ 13  the single-env path: (a) a SimEnv of the hard eval set's tasks at
+     the production knobs (render 400, obs 64, 96 views) with
+     dump_visualizations, driven by the round-4 checkpoint through
+     MaximumValuePolicy.act: reset and 2 steps (an episode of 2 steps
+     ends, on_episode_end writes its video), launch counters zeroed
+     before and read after; the video read back with cv2; (b) the frames
+     a step recorded rendered on the card into uint8 256 px frames, one
+     held against its render on the CPU; (c) a recording BatchSimEnv step
+     of 4 hard tasks, its programs cut to 400 sim steps before the
+     settle, each env's recorded frames against the count its sim steps
+     imply; (d) pyflex_compat: one hard task, 8 steps, a
+     position round trip, render, and one frame on the card against the
+     CPU.  Fails if a kernel never launches, a video or frame count
+     disagrees, fewer than 2 rendered frames differ or a frame disagrees
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -141,10 +161,10 @@ TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
                 for k in ("P", "prev", "V")})
-for _kind in ("substeps_gen", "substeps_gen128"):
+for _kind in ("substeps_gen", "substeps_gen128", "substeps_single"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
                 for k in ("P", "prev", "V")})
-for _kind in ("contacts_gen", "contacts_gen128"):
+for _kind in ("contacts_gen", "contacts_gen128", "contacts_single"):
     TOL[f"{_kind}.xyz"] = TOL["contacts.xyz"]
 # the card's frame against the CPU plain path: the card's rsqrt is
 # approximate and CUDA divides by a host scalar through its reciprocal
@@ -188,6 +208,16 @@ LARGE_DIM, LARGE_ENVS = 128, 64
 GEN_PROFILES = ((100, 104, 64, 104), (LARGE_ENVS, LARGE_DIM, 112, 128))
 MAX_RATIO = 1.2  # initial coverage / flatten area of a generated task
 BENCH_ENVS, BENCH_DIM, BENCH_STEPS, BENCH_WINDOWS = 512, 100, 20, 5
+# the single-env path (phase 13): one episode of SINGLE_LENGTH steps, a
+# recording BatchSimEnv step of SINGLE_BATCH envs, PYFLEX_STEPS
+# pyflex_compat frames; a recorded frame's card render against the CPU
+# within RENDER_TOL levels of 255 (the depth buffer is exact, shading
+# differs in the last place: CUDA divides by a host scalar through its
+# reciprocal)
+SINGLE_LENGTH, SINGLE_BATCH, PYFLEX_STEPS, RENDER_TOL = 2, 4, 8, 1
+# the recording BatchSimEnv step's programs stop after this many sim
+# steps, then settle (the whole step took 22.37 s on an H100)
+SINGLE_BATCH_PROGRAM = 400
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
               contact_iterations=4, contact_window=12)
 SCALES = (1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75)
@@ -322,10 +352,10 @@ def phase_build(device):
             f"cudaOccupancyMaxActiveClusters {n}")
 
 
-def synthetic_inputs(B, H, W, gen, device, full=False, lo=64):
+def synthetic_inputs(B, H, W, gen, device, full=False, lo=64, size=None):
     """Wrinkled, compressed cloths (so contacts fire) of seeded dims in
-    lo..H (full: H x W), an active picker touching each, seeded
-    velocities."""
+    lo..H (full: H x W; size: this (dimx, dimy) for every env), an active
+    picker touching each, seeded velocities."""
     import torch
 
     from flingbot_tpu_torch.engine.solver import pack_sub_params
@@ -336,6 +366,8 @@ def synthetic_inputs(B, H, W, gen, device, full=False, lo=64):
     dims = torch.randint(lo, H + 1, (B, 2), generator=gen)
     if full:
         dims = torch.tensor([[W, H]] * B)
+    if size is not None:
+        dims = torch.tensor([list(size)] * B)
     topo = build_grid_topology(dims[:, 0].numpy(), dims[:, 1].numpy(),
                                max_dimx=W, max_dimy=H, device=device)
     iy = torch.arange(H).view(1, H, 1).float()
@@ -435,6 +467,20 @@ def phase_kernels(device):
         "contacts_gen128", lout, lw, lvalid, ldims, err, window=16,
         iterations=8)
     del lP, lV, lw, lout
+    # the single env's launches (SimEnv, phase 13): B = 1, one cloth of
+    # the hard eval set's first task's dims, on the 104 lattice
+    from flingbot_tpu_torch.env.tasks import TaskLoader
+
+    size = tuple(int(v) for v in TaskLoader(
+        os.path.join(ROOT, RECT_TASKS)).get_next_task().cloth_size)
+    _, spvec, sP, sV, sw, svalid, _ = synthetic_inputs(1, H, W, gen, device,
+                                                       size=size)
+    rows["substeps_single"], sout = kernel_substeps(
+        "substeps_single", spvec, sP, sV, sw, [size], err,
+        dict(n_sub=2, iterations=16, picker_last=False))
+    rows["contacts_single"], _ = kernel_contacts(
+        "contacts_single", sout, sw, svalid, [size], err, window=12,
+        iterations=4)
     rows.update(kernel_mesh(device, err))
     rows.update(kernel_mesh_generic(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
@@ -1246,6 +1292,7 @@ def phase_generate(device):
                     path, num, batch=num, seed=seed, min_cloth_size=mins,
                     max_cloth_size=maxs, strict_min_edge_length=strict,
                     task_difficulty=diff, max_grid_dim=grid,
+                    backend="pallas", contact_mode="sort",
                     chunk_steps=GEN_CHUNK, solver_params=params,
                     device=device)
             torch.cuda.synchronize()
@@ -1412,9 +1459,177 @@ def phase_generic_mesh(device):
     return launches["contacts_mesh"]
 
 
+def read_video(path: str) -> int:
+    """Frames of a video, counted by decoding them."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_single_env(device):
+    """The single-env path (see the module docstring, phase 13): a SimEnv
+    episode with its video, its recorded frames rendered on the card and
+    held against the CPU, a recording BatchSimEnv step, and
+    pyflex_compat.  Returns the kernels' launches of the SimEnv episode.
+    The card machine has cv2 (4.13.0, with a VP9 webm writer): the
+    videos are written and read back."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flingbot_tpu_torch import pyflex_compat as pyflex
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.sim_env import (
+        SimEnv, render_frames, video_dir)
+    from flingbot_tpu_torch.env.tasks import SEQ_SIM_KW, TaskLoader
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+    from flingbot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    path = os.path.join(ROOT, RECT_TASKS)
+    production = dict(backend="pallas", spring_mode="chebyshev",
+                      contact_mode="sort", **SOLVER)
+    policy = MaximumValuePolicy(["fling"], 64, device=device)
+    load_checkpoint(os.path.join(ROOT, ROUND4_CKPT), policy)
+    with tempfile.TemporaryDirectory(suffix="_single") as tmp:
+        # (a) one episode of SINGLE_LENGTH steps
+        replay = os.path.join(tmp, "replay")
+        env = SimEnv(TaskLoader(path).get_next_task,
+                     replay_buffer_path=replay, scale_factors=SCALES,
+                     episode_length=SINGLE_LENGTH, dump_visualizations=True,
+                     device=device, **production)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        obs = env.reset()
+        torch.cuda.synchronize()
+        log(f"  reset {time.perf_counter() - t0:.2f} s; init coverage "
+            f"{env.init_coverage:.5f} m^2; obs {tuple(obs.shape)}")
+        # frames recorded per step of the first episode; the list a step
+        # leaves behind when its episode goes on
+        episode, first_episode, chunks = [], None, None
+        for k in range(SINGLE_LENGTH):
+            t0 = time.perf_counter()
+            obs = env.step(policy.act([obs])[0])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            last = env.env.last
+            sim = int(last.sim_steps[0])
+            frames = min(-(-sim // env.record_every), env.record_frames)
+            episode.append(frames)
+            if env.current_timestep == 0:  # the episode ended
+                if first_episode is None:
+                    first_episode = sum(episode)
+                episode = []
+            else:
+                chunks = [c.copy() for c in env.env.frames[0]]
+            log(f"  step {k}: {seconds:.2f} s, {sim} sim steps, {frames} "
+                f"frames recorded, reward "
+                f"{float(last.post_coverage[0] - last.pre_coverage[0]):+.5f}"
+                f" m^2, terminate {bool(last.terminate[0])}, episodes "
+                f"{env.episode_count}")
+            if not bool(torch.isfinite(obs).all()):
+                raise AssertionError("non-finite observation")
+        launches = dict(kernels.LAUNCHES)
+        log(f"  launches of the episode: {launches}")
+        for name in ("substeps", "contacts"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} kernel never launched by "
+                                     "SimEnv")
+        if env.episode_count < 1:
+            raise AssertionError("no episode ended")
+        video = os.path.join(video_dir(replay), "000000000.webm")
+        n_video = read_video(video)
+        log(f"  episode video: {n_video} frames ({os.path.getsize(video)} "
+            f"B), {first_episode} recorded; replay steps "
+            f"{len(os.listdir(replay))}")
+        if n_video != first_episode or n_video <= 0:
+            raise AssertionError("the episode video lacks frames")
+
+        # (b) recorded frames rendered on the card, one against the CPU
+        if chunks is None:
+            raise AssertionError("no step left its frames in the list")
+        positions = np.concatenate(chunks)
+        if not np.isfinite(positions).all():
+            raise AssertionError("non-finite recorded positions")
+        active = env.state.active[0]
+        palette = tuple(p[0] for p in env.env.palette)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb = render_frames(positions, active, palette)
+        torch.cuda.synchronize()
+        s_render = time.perf_counter() - t0
+        cpu = render_frames(positions[:1], active.cpu(),
+                            tuple(p.cpu() for p in palette))
+        diff = int(np.abs(rgb[:1].astype(np.int16) - cpu).max())
+        distinct = len({f.tobytes() for f in rgb})
+        log(f"  rendered {len(rgb)} frames {rgb.shape[1:]} on the card in "
+            f"{s_render:.3f} s ({distinct} distinct); frame 0 card vs CPU "
+            f"max |d| {diff} of 255 (tolerance {RENDER_TOL})")
+        if distinct < 2 or diff > RENDER_TOL:
+            raise AssertionError("the recorded frames render wrongly")
+
+        # (c) a recording BatchSimEnv step
+        benv = BatchSimEnv(
+            get_task_fn=TaskLoader(path).get_next_task,
+            num_envs=SINGLE_BATCH, replay_buffer_path=os.path.join(
+                tmp, "batch", "replay"), episode_length=2,
+            render_dim=256, scale_factors=SCALES, chunk_steps=192,
+            max_program_steps=SINGLE_BATCH_PROGRAM,
+            dump_visualizations=True, device=device, **SOLVER)
+        t0 = time.perf_counter()
+        benv.step(policy.batch_value_maps(benv.reset()))
+        torch.cuda.synchronize()
+        sims = benv.last.sim_steps.tolist()
+        implied = [min(-(-s // benv.record_every), benv.record_frames)
+                   for s in sims]
+        got = []
+        for i, term in enumerate(benv.last.terminate.tolist()):
+            got.append(read_video(os.path.join(
+                video_dir(benv.replay_buffer_path), sorted(
+                    f for f in os.listdir(video_dir(
+                        benv.replay_buffer_path)) if f"_env{i}." in f)[0]))
+                       if term else sum(len(c) for c in benv.frames[i]))
+        log(f"  BatchSimEnv step of {SINGLE_BATCH}: "
+            f"{time.perf_counter() - t0:.2f} s; frames per env {got}, "
+            f"implied by the sim steps {implied}")
+        if got != implied:
+            raise AssertionError("recorded frames differ from the sim steps")
+
+    # (d) pyflex_compat on one hard task
+    task = TaskLoader(path).get_next_task()
+    t0 = time.perf_counter()
+    pyflex.init(True, True, 256, 256, device=device)
+    pyflex.set_scene_config(task.get_config(), task.get_state())
+    for _ in range(PYFLEX_STEPS):
+        pyflex.step()
+    pos = pyflex.get_positions()
+    pyflex.set_positions(pos)
+    if not np.array_equal(pyflex.get_positions(), pos):
+        raise AssertionError("pyflex_compat positions do not round-trip")
+    rgba, depth = pyflex.render()
+    log(f"  pyflex_compat: {PYFLEX_STEPS} steps and render in "
+        f"{time.perf_counter() - t0:.2f} s; {len(pos) // 4} particles, "
+        f"rgba {rgba.shape}, depth {depth.shape}")
+    if rgba.shape != (256 * 256 * 4,) or depth.shape != (256 * 256,):
+        raise AssertionError("pyflex_compat render shapes")
+    frame_check(pyflex._sim.state, pyflex._sim.topo, SolverParams(),
+                "pyflex_compat, one hard task", ill_conditioned=True,
+                **SEQ_SIM_KW)
+    return launches
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
-    and wind set, through the one-substep launches; first one frame of 4
+    and wind set, through the one-substep launches (18 interpreter steps
+    of the fling, 16 profiled, and the step's end); first one frame of 4
     envs on the card against the CPU."""
     from flingbot_tpu_torch.engine.solver import step
     from flingbot_tpu_torch.engine.state import SolverParams
@@ -1428,7 +1643,7 @@ def phase_aero(state, topo, device):
     if not kick > 1e-3:
         raise AssertionError("the aero pass changed nothing")
     launches, _, _ = drive_path((state, topo), device, ("substeps",),
-                                params)
+                                params, steps=16)
     return launches
 
 
@@ -1527,6 +1742,10 @@ def main():
         gen = phase_generate(device)
     with Phase("12 generic mesh path, xla backend"):
         launches["contacts_mesh_generic"] = phase_generic_mesh(device)
+    with Phase("13 single-env path"):
+        single = phase_single_env(device)
+    launches["substeps_single"] = single["substeps"]
+    launches["contacts_single"] = single["contacts"]
     for name in ("substeps", "contacts"):
         launches[name] += train[name] + action[name] + gen.pop(name)
     launches["substeps_jacobi"] = jacobi_launches
@@ -1551,15 +1770,17 @@ def main():
         "substeps_jacobi": ("flingbot_tpu_torch/csrc/substeps.cu",
                             "flingbot_tpu/engine/pallas_kernels.py:229")}
     # the task generator's launches: 30 iterations, contacts 8 x window 16
-    # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices
-    for lattice in ("gen", "gen128"):
+    # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices;
+    # and the single env's (B = 1) on the 104 lattice
+    for lattice in ("gen", "gen128", "single"):
         sources[f"substeps_{lattice}"] = sources["substeps"]
         sources[f"contacts_{lattice}"] = sources["contacts"]
     table = []
     for name in ("substeps", "contacts", "contacts_mesh", "substeps_aero",
                  "substeps_jacobi", "substeps_gen", "contacts_gen",
                  "substeps_gen128", "contacts_gen128",
-                 "contacts_mesh_generic"):
+                 "contacts_mesh_generic", "substeps_single",
+                 "contacts_single"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

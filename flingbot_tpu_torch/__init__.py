@@ -18,8 +18,10 @@ keep vertex order, (B, 3, N).
 Every solver mode of the JAX package is here: the pallas backend (the
 kernels) and the xla backend (plain PyTorch, launching no kernel) with
 every spring mode and contact mode, on grid cloths, layered shirts and
-generic meshes, and both task generators.  One flag is still refused:
---dump_visualizations (ROADMAP Queue 1 item 7).
+generic meshes, and both task generators; every run_sim flag, the episode
+videos of --dump_visualizations included.  Beside the batched env are the
+single-env surface (`env.sim_env.SimEnv`, `pyflex_compat`) and the replay
+gallery (`python -m flingbot_tpu_torch.visualize`).
 
 Entry points run on the card (`device="cuda"`) and raise when CUDA is
 absent; they run on the CPU only when the caller passes `device="cpu"`.

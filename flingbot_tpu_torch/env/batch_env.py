@@ -19,11 +19,20 @@ slot is reloaded with the next task (batch_env.py:587-719).
 
 `reset(state, topo)` instead starts every slot from states the caller
 made (no tasks, no episodes, no replay).
+
+With dump_visualizations (or record_frames > 0 set directly) each step
+records every record_every-th sim step's positions into record_frames
+slots per env on the card (at 128 envs of the 104 lattice, 128 x 256 x 3
+x 10,816 x 4 B = 4.3 GB), and keeps each env's recorded frames on the host
+until its episode ends; the episode's video goes to
+visualizations/{episodes_done:09d}_env{i}.webm beside the replay record
+(batch_env.py:398-428).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 import warnings
 from typing import Callable, NamedTuple, Optional, Sequence
@@ -46,7 +55,8 @@ from flingbot_tpu_torch.env.observation import (
 from flingbot_tpu_torch.env.primitives import (
     STABLE_MAX_STEPS, PrimitiveConfig, program_chunk)
 from flingbot_tpu_torch.env.scene import PARK_PICKERS, make_batch, scene_task
-from flingbot_tpu_torch.env.sim_env import step_begin, step_finish
+from flingbot_tpu_torch.env.sim_env import (
+    step_begin, step_finish, video_dir, write_episode_video)
 from flingbot_tpu_torch.learning.memory import Memory
 from flingbot_tpu_torch.learning.nets import rotation_list
 from flingbot_tpu_torch.render.rasterizer import domain_randomized_palette
@@ -116,7 +126,7 @@ class BatchSimEnv:
                  fling_speed: float = 6e-3, fixed_fling_height: float = -1.0,
                  chunk_steps: int = 64, max_program_steps: int = 4000,
                  solver_params: SolverParams | None = None, seed: int = 0,
-                 device="cuda"):
+                 dump_visualizations: bool = False, device="cuda"):
         self.device = resolve_device(device)
         for name, value, choices in (
                 ("spring_mode", spring_mode, SPRING_MODES),
@@ -182,6 +192,10 @@ class BatchSimEnv:
         self.timesteps = np.zeros(0, np.int64)
         self.episodes_done = 0
         self.episodes_terminated = 0  # ended early: terminate before length
+        self.dump_visualizations = dump_visualizations
+        self.record_frames = 256 if dump_visualizations else 0
+        self.record_every = 8
+        self.frames: list = []  # per env: the recorded (F_i, 3, N) chunks
 
     # ------------------------------------------------------------------
 
@@ -215,6 +229,7 @@ class BatchSimEnv:
         state = state.replace(picker_pos=park.expand(state.batch, -1,
                                                      -1).clone())
         self.state = solver_step(state, topo, self.params, **self.sim_kw)
+        self.frames = [[] for _ in range(state.batch)]
         self.init_coverage = get_current_covered_area(
             self.state.positions, self.state.active)
         if self.domain_randomization:
@@ -307,7 +322,7 @@ class BatchSimEnv:
         sel, pre_cov, pre_pos, carry, prog = step_begin(
             self.state, vm, self.obs, self.rotations, self.prim_cfg,
             self.pix_grasp_dist, self.action_primitives, self.pix_drag_dist,
-            self.pix_place_dist)
+            self.pix_place_dist, self.record_frames)
         return StepStart(t0, self.obs.obs_stack, sel, pre_cov, pre_pos,
                          carry, prog,
                          self.prim_cfg.max_program_steps + STABLE_MAX_STEPS)
@@ -317,14 +332,18 @@ class BatchSimEnv:
         -> (carry, done (B,) bool)."""
         return program_chunk(carry, self.topo, self.params, start.prog,
                              chunk_steps=steps, max_steps=start.max_steps,
-                             sim_kw=self.sim_kw)
+                             sim_kw=self.sim_kw,
+                             record_every=self.record_every)
 
     def end_step(self, start: StepStart, carry, chunks: int) -> torch.Tensor:
         """The last part of step() on the programs' carry: post coverage,
         termination, the next observation; with tasks, the replay record,
         episode ends and reloads."""
         t0, sel, pre_cov = start.t0, start.selection, start.pre_coverage
-        state, post_cov, terminate = step_finish(carry, start.pre_positions)
+        state, post_cov, terminate, *recorded = step_finish(
+            carry, start.pre_positions, self.record_frames)
+        if recorded:
+            self._keep_frames(*recorded)
         self.state = state
         self.last = StepInfo(sel, pre_cov, post_cov, terminate,
                              carry.total_steps, chunks)
@@ -349,6 +368,24 @@ class BatchSimEnv:
               f"reload {t_end - t_replay:.3f}s (n={len(reload_idx)}) "
               f"total {t_end - t0:.3f}s", flush=True)
         return self.obs.obs_stack
+
+    def _keep_frames(self, frames, counts):
+        """Append each env's recorded frames of this step to its list, in
+        one copy to the host (batch_env.py:575-578)."""
+        counts = counts.cpu().numpy()
+        frames = frames[:, :int(counts.max())].cpu().numpy()
+        for i, n in enumerate(counts):
+            self.frames[i].append(frames[i, :n])
+
+    def _write_video(self, i: int) -> str:
+        """Env slot i's episode video (batch_env.py:398-428), rendered
+        with its current cloth and palette."""
+        palette = None if self.palette is None else tuple(
+            p[i] for p in self.palette)
+        return write_episode_video(
+            self.frames[i], self.state.active[i], palette,
+            os.path.join(video_dir(self.replay_buffer_path),
+                         f"{self.episodes_done:09d}_env{i}.webm"))
 
     def _log_step(self, prev_stack, sel, pre_cov, post_cov, terminate):
         """Add the step to every slot's Memory with the values the JAX env
@@ -389,6 +426,8 @@ class BatchSimEnv:
                 float(post_cov[i] - pre_cov[i]), done)
             mem.add_value("next_observations", self._pretransform_np[i])
             if done:
+                if self.dump_visualizations and self.frames[i]:
+                    self._write_video(i)
                 if self.replay_buffer_path is not None and len(mem):
                     mem.dump(self.replay_buffer_path)
                 self.episodes_done += 1
@@ -409,6 +448,7 @@ class BatchSimEnv:
             self.tasks[i] = self.get_task_fn()
             self.memories[i] = Memory()
             self.timesteps[i] = 0
+            self.frames[i] = []
         topo, state = self.load_scenes([self.tasks[i] for i in reload_idx])
         idx = torch.tensor(reload_idx, dtype=torch.int64, device=self.device)
         self.topo = self.topo.set_slots(idx, topo)

@@ -308,12 +308,22 @@ class Carry:
     cloth_mid: torch.Tensor
     stable_steps: torch.Tensor
     terminate: torch.Tensor  # (B,) bool
+    # recorded positions (B, F, 3, N), or None when nothing is recorded,
+    # and each env's count of recorded frames (B,)
+    frames: torch.Tensor | None
+    frame_idx: torch.Tensor
 
 
 def init_program_carry(state: ClothState, init_grasp_dist,
-                       init_fling_height) -> Carry:
+                       init_fling_height, record_frames: int = 0) -> Carry:
+    """A fresh interpreter carry; record_frames > 0 allocates that many
+    frame slots per env (init_program_carry, primitives.py:585-602)."""
     B, dev = state.batch, state.device
     z = torch.zeros(B, dtype=torch.int64, device=dev)
+    frames = None
+    if record_frames > 0:
+        frames = torch.zeros((B, record_frames) + state.positions.shape[1:],
+                             dtype=state.positions.dtype, device=dev)
     return Carry(
         state=state, pc=z, phase_step=z.clone(), total_steps=z.clone(),
         targets=state.picker_pos.clone(),
@@ -326,14 +336,19 @@ def init_program_carry(state: ClothState, init_grasp_dist,
             B, 3).clone(),
         cloth_mid=torch.full((B, 3), float("inf"), device=dev),
         stable_steps=z.clone(),
-        terminate=torch.zeros(B, dtype=torch.bool, device=dev))
+        terminate=torch.zeros(B, dtype=torch.bool, device=dev),
+        frames=frames, frame_idx=z.clone())
 
 
 def _where_carry(mask, a: Carry, b: Carry) -> Carry:
+    """a where mask, else b; the frames are a's (body leaves them alone,
+    and program_chunk records into them)."""
     out = {}
     for f in dataclasses.fields(Carry):
         va, vb = getattr(a, f.name), getattr(b, f.name)
-        if f.name == "state":
+        if f.name == "frames":
+            out[f.name] = va
+        elif f.name == "state":
             out[f.name] = where_state(mask, va, vb)
         else:
             out[f.name] = torch.where(
@@ -495,21 +510,44 @@ def body(c: Carry, topo, params: SolverParams, program: Program,
         stretch_mid=stretch_mid, stretch_dir=stretch_dir,
         cloth_mid=torch.where((hold & reached)[:, None], new_mid, cloth_mid),
         stable_steps=torch.where(hold & reached, stable_next, stable),
-        terminate=terminate)
+        terminate=terminate, frames=c.frames, frame_idx=c.frame_idx)
 
 
 def running(c: Carry, program: Program, max_steps: int) -> torch.Tensor:
     return (c.pc < program.num_instructions) & (c.total_steps < max_steps)
 
 
+def record_frame(old: Carry, new: Carry, record_every: int) -> Carry:
+    """Write each env's positions after a sim step into its next frame
+    slot when the step simulated, its count of sim steps before it is a
+    multiple of record_every and a slot is free (the frame slots of
+    _make_body, primitives.py:551-556).  In place: one (3, N) slot per
+    env."""
+    F = new.frames.shape[1]
+    rec = ((new.total_steps > old.total_steps)
+           & (old.total_steps % record_every == 0) & (new.frame_idx < F))
+    ar = torch.arange(rec.shape[0], device=rec.device)
+    slot = new.frame_idx.clamp(max=F - 1)
+    new.frames[ar, slot] = torch.where(rec[:, None, None],
+                                       new.state.positions,
+                                       new.frames[ar, slot])
+    new.frame_idx = new.frame_idx + rec.to(torch.int64)
+    return new
+
+
 def program_chunk(carry: Carry, topo, params: SolverParams,
                   program: Program, *, chunk_steps: int = 64,
-                  max_steps: int = 4000, sim_kw: dict | None = None):
+                  max_steps: int = 4000, sim_kw: dict | None = None,
+                  record_every: int = 8):
     """Run at most `chunk_steps` interpreter steps; envs that are done
-    stay as they are.  Returns (carry', done (B,) bool)."""
+    stay as they are.  A carry with frames records every record_every-th
+    sim step (record_frame).  Returns (carry', done (B,) bool)."""
     sim_kw = sim_kw or {}
     for _ in range(chunk_steps):
         run = running(carry, program, max_steps)
-        carry = _where_carry(run, body(carry, topo, params, program, sim_kw),
-                             carry)
+        new = _where_carry(run, body(carry, topo, params, program, sim_kw),
+                           carry)
+        if new.frames is not None:
+            new = record_frame(carry, new, record_every)
+        carry = new
     return carry, ~running(carry, program, max_steps)

@@ -589,9 +589,10 @@ def generate_tasks_batch(
     strict_min_edge_length: int = 64,
     task_difficulty: str = "hard",
     max_grid_dim: int = 104,
-    backend: str = "pallas",
+    backend: str = "xla",
     spring_mode: str = "gs",
-    contact_mode: str = "sort",
+    contact_mode: str = "block",
+    contact_every: int = 2,
     log: bool = True,
     chunk_steps: int = 64,
     schedule=None,
@@ -606,16 +607,19 @@ def generate_tasks_batch(
     from seed + that count.  A task with a particle above MAX_TASK_HEIGHT
     after the settle is dropped.  schedule = (sweep, hold, settle[,
     tosses]) overrides the difficulty's (SCHEDULES).  backend,
-    spring_mode and contact_mode go to solver.step (on the pallas backend
-    "gs" runs as Chebyshev and every contact mode as "sort"); the batch
-    runs on `device`, CUDA unless the caller asks for the CPU.  Returns
-    the number of tasks in the file."""
+    spring_mode, contact_mode and contact_every go to solver.step, with
+    the JAX function's defaults (the plain xla backend, Gauss-Seidel
+    springs, block contacts); scripts/generate_sets_r3.py and
+    generate_sets pass backend "pallas" and contact_mode "sort", the
+    kernels (on the pallas backend "gs" runs as Chebyshev and every
+    contact mode as "sort").  The batch runs on `device`, CUDA unless the
+    caller asks for the CPU.  Returns the number of tasks in the file."""
     if task_difficulty not in SCHEDULES:
         raise ValueError(f"unknown task_difficulty {task_difficulty!r}")
     dev = resolve_device(device)
     params = solver_params if solver_params is not None else SolverParams()
     sim_kw = dict(GEN_SIM_KW, backend=backend, spring_mode=spring_mode,
-                  contact_mode=contact_mode)
+                  contact_mode=contact_mode, contact_every=contact_every)
     sweep, hold, settle, tosses = SCHEDULES[task_difficulty]
     if schedule is not None:
         sweep, hold, settle = schedule[:3]
@@ -921,13 +925,13 @@ def main(argv=None) -> int:
         "python -m flingbot_tpu_torch.env.tasks",
         description="Generate tasks into a task archive (.npz, read by "
         "TaskLoader) on the card.  Square cloths go through the batched "
-        "generator, whose defaults are the configuration "
-        "scripts/generate_sets_r3.py runs (backend pallas, contact_mode "
-        "sort, spring_mode gs, which the pallas step runs as Chebyshev), "
-        "not the JAX CLI's xla / block; --sequential and --cloth_type "
-        "mesh take the sequential generator at solver.step's JAX "
-        "defaults.  Both run at the friction of the JAX package's "
-        "committed rectangle sets (--gen_fric), not the production 0.1.")
+        "generator at the JAX CLI's defaults (backend xla, spring_mode "
+        "gs, contact_mode block; scripts/generate_sets_r3.py and "
+        "generate_sets run --backend pallas --contact_mode sort, the "
+        "kernels); --sequential and --cloth_type mesh take the sequential "
+        "generator at solver.step's JAX defaults.  Both run at the "
+        "friction of the JAX package's committed rectangle sets "
+        "(--gen_fric), not the production 0.1.")
     p.add_argument("--path", required=True)
     p.add_argument("--num_tasks", type=int, default=200)
     p.add_argument("--task_difficulty", default="hard",
@@ -943,9 +947,9 @@ def main(argv=None) -> int:
     p.add_argument("--max_grid_dim", type=int, default=104)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backend", default="pallas")
+    p.add_argument("--backend", default="xla")
     p.add_argument("--spring_mode", default="gs")
-    p.add_argument("--contact_mode", default="sort")
+    p.add_argument("--contact_mode", default="block")
     p.add_argument("--gen_fric", type=float, default=GEN_FRICTION,
                    help="dynamic friction during generation (default "
                    "%(default)s)")

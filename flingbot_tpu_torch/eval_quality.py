@@ -90,7 +90,10 @@ def parse_args(argv=None):
     p.add_argument("--contact_every", type=int, default=2)
     p.add_argument("--contact_iterations", type=int, default=4)
     p.add_argument("--contact_window", type=int, default=12)
-    p.add_argument("--exec_mode", choices=["chunked"], default="chunked")
+    p.add_argument("--exec_mode", choices=["chunked", "fused"],
+                   default="chunked",
+                   help="accepted and ignored: a TPU execution knob of the "
+                        "JAX package that does not change results")
     p.add_argument("--chunk_steps", type=int, default=192)
     p.add_argument("--domain_randomization",
                    action=argparse.BooleanOptionalAction, default=True)

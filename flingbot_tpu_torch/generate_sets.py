@@ -8,8 +8,9 @@ Each set goes to `<out>/<name>.npz` (default out: data_torch/), a task
 archive that TaskLoader reads; an archive that exists is topped up to its
 count, not overwritten.  The sets are those of the JAX script (sizes,
 seeds, lattice), made by flingbot_tpu_torch.env.tasks.generate_tasks_batch
-with the fused substeps kernel, sorted-window contacts and Chebyshev
-springs, at the generator's friction (tasks.GEN_FRICTION, the FleX
+as the JAX script runs it: --backend pallas and --contact_mode sort by
+default (the fused substeps kernel, sorted-window contacts, "gs" springs
+run as Chebyshev), at the generator's friction (tasks.GEN_FRICTION, the FleX
 scene's 0.75), with which PARITY.md says every committed JAX set was
 made: at the production friction (0.1) the crumples come out near flat.
 The shirt set (16 hard shirt tasks, seed 500, from data/shirts) goes
@@ -89,6 +90,10 @@ def main(argv=None):
                          "%(default)s, that of the JAX package's committed "
                          "sets; the JAX script's default is the production "
                          "0.1)")
+    ap.add_argument("--backend", default="pallas",
+                    choices=["pallas", "xla"])
+    ap.add_argument("--contact_mode", default="sort",
+                    choices=["sort", "sweep", "block", "table"])
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     params = SolverParams(dynamic_friction=f32(a.gen_fric))
@@ -116,7 +121,8 @@ def main(argv=None):
         generate_tasks_batch(
             path, num, batch=batch, seed=seed, min_cloth_size=mins,
             max_cloth_size=maxs, strict_min_edge_length=strict,
-            task_difficulty=diff, max_grid_dim=grid,
+            task_difficulty=diff, max_grid_dim=grid, backend=a.backend,
+            spring_mode="gs", contact_mode=a.contact_mode, contact_every=2,
             chunk_steps=a.chunk_steps, solver_params=params,
             device=a.device)
         stats[name] = dict(set_stats(path),

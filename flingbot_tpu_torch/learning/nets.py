@@ -11,7 +11,7 @@ optax.adamw does (NetState).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -200,6 +200,17 @@ class MaximumValuePolicy:
 
     def steps(self) -> int:
         return sum(n.steps for n in self.nets.values())
+
+    def value_maps(self, obs_stack) -> Dict[str, torch.Tensor]:
+        """obs_stack (T, C, D, D) of one env -> {primitive: (T, D, D)}:
+        batch_value_maps at B = 1, exploration included (value_maps,
+        nets.py:219-240)."""
+        vm = self.batch_value_maps(torch.as_tensor(obs_stack)[None])[0]
+        return {k: vm[i] for i, k in enumerate(self.action_primitives)}
+
+    def act(self, obs_stacks) -> List[Dict[str, torch.Tensor]]:
+        """value_maps of each obs stack (act, nets.py:242-243)."""
+        return [self.value_maps(o) for o in obs_stacks]
 
     @torch.no_grad()
     def batch_value_maps(self, obs: torch.Tensor,

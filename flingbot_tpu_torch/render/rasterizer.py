@@ -3,8 +3,9 @@
 
 Every cloth triangle is sampled on a barycentric lattice; each sample and
 each particle marks the pixel that contains it in a depth buffer by a
-scatter-min (`scatter_reduce("amin")`).  Pixels nothing covers read as the
-floor (depth = camera_height).  Shading is Lambertian with normals taken
+scatter-min (`scatter_reduce("amin")`); without triangles (the episode
+videos) each particle marks a disk of pixels.  Pixels nothing covers read
+as the floor (depth = camera_height).  Shading is Lambertian with normals taken
 from the depth buffer by finite differences.  Layouts follow the JAX
 package: rgb (B, S, S, 3), depth (B, S, S).
 """
@@ -107,10 +108,13 @@ def surface_sample_points(positions, faces, tri_mask, m: int):
     return pts.reshape(B, 3, -1), act.reshape(B, -1)
 
 
-def splat_depth(positions, active, image_size: int):
-    """Scatter-min each point into the pixel that contains it: the depth
-    buffer of _splat_depth (rasterizer.py:122-152) in its surface-sampled
-    mode (one-pixel stamps).  positions (B, 3, M) -> (B, S, S)."""
+def splat_depth(positions, active, image_size: int,
+                splat_radius_px: float = 0.5, k: int = 1):
+    """Scatter-min each point's disk of pixels into a depth buffer: the
+    pixels of a k x k stamp around the point's pixel within
+    splat_radius_px of it (_splat_depth, rasterizer.py:122-152).  The
+    defaults stamp the one pixel that contains the point, the
+    surface-sampled mode.  positions (B, 3, M) -> (B, S, S)."""
     B = positions.shape[0]
     S = image_size
     f = focal_length(S)
@@ -120,6 +124,17 @@ def splat_depth(positions, active, image_size: int):
     safe = torch.clamp(depth, min=1e-4)
     col = torch.round(x * f / safe + c).to(torch.int64)
     row = torch.round(-z * f / safe + c).to(torch.int64)
+    offs = np.arange(k) - k // 2
+    dr, dc = np.meshgrid(offs, offs, indexing="ij")
+    disk = dr * dr + dc * dc <= splat_radius_px * splat_radius_px
+    if disk.sum() > 1:
+        stamp = lambda o: torch.as_tensor(  # noqa: E731
+            o[disk], device=positions.device)
+        row = (row[..., None] + stamp(dr)).reshape(B, -1)
+        col = (col[..., None] + stamp(dc)).reshape(B, -1)
+        n = int(disk.sum())
+        depth = depth[..., None].expand(-1, -1, n).reshape(B, -1)
+        active = active[..., None].expand(-1, -1, n).reshape(B, -1)
     inside = (row >= 0) & (row < S) & (col >= 0) & (col < S) & active
     idx = torch.where(inside, row * S + col, S * S)
     buf = torch.full((B, S * S + 1), CAMERA_HEIGHT, dtype=positions.dtype,
@@ -128,18 +143,24 @@ def splat_depth(positions, active, image_size: int):
     return buf[:, :S * S].reshape(B, S, S)
 
 
-def render_rgbd(positions, active, faces, tri_mask, image_size: int = 400,
-                palette=None):
-    """(B, 3, N) particles of cloths with triangles `faces` (B, T, 3) /
-    `tri_mask` (B, T) -> (rgb (B, S, S, 3) in [0, 1], depth (B, S, S)):
-    the particles and dense barycentric samples of every triangle,
-    z-buffered (render_rgbd, rasterizer.py:187-244, with faces).
-    `palette` = (cloth (B, 3), floor (B, S, S, 3)) from
-    domain_randomized_palette; None gives the fixed default colours."""
-    pts, act = surface_sample_points(positions, faces, tri_mask,
-                                     surface_subdiv(image_size))
-    depth = splat_depth(torch.cat([positions, pts], 2),
-                        torch.cat([active, act], 1), image_size)
+def render_rgbd(positions, active, faces=None, tri_mask=None,
+                image_size: int = 400, palette=None):
+    """(B, 3, N) particles -> (rgb (B, S, S, 3) in [0, 1], depth (B, S, S))
+    (render_rgbd, rasterizer.py:187-244).  With the cloth's triangles
+    `faces` (B, T, 3) / `tri_mask` (B, T): the particles and dense
+    barycentric samples of every triangle, one pixel each (the
+    observation's render).  Without: each particle as a disk of radius
+    2.5 px in a 7 x 7 stamp (the episode videos' render).  `palette` =
+    (cloth (B, 3), floor (B, S, S, 3)) from domain_randomized_palette;
+    None gives the fixed default colours."""
+    if faces is None:
+        depth = splat_depth(positions, active, image_size,
+                            splat_radius_px=2.5, k=7)
+    else:
+        pts, act = surface_sample_points(positions, faces, tri_mask,
+                                         surface_subdiv(image_size))
+        depth = splat_depth(torch.cat([positions, pts], 2),
+                            torch.cat([active, act], 1), image_size)
     is_cloth = depth < CAMERA_HEIGHT - 1e-4
 
     f = focal_length(image_size)

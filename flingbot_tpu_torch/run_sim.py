@@ -146,7 +146,7 @@ def main(argv=None, max_rounds=None):
         fixed_fling_height=args.fixed_fling_height,
         chunk_steps=args.chunk_steps,
         solver_params=solver_params(args.solver_overrides), seed=args.seed,
-        device=device)
+        dump_visualizations=args.dump_visualizations, device=device)
 
     # one dataset per primitive, refreshed incrementally: a fresh one per
     # round would re-read every step's attributes to re-apply the filter

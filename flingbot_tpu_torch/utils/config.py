@@ -2,10 +2,8 @@
 flingbot_tpu/utils/config.py): the same training, eval and env flags with
 the same defaults, plus --device.
 
-A flag whose results the port cannot reproduce raises
-NotImplementedError in apply_presets when set to anything but its
-default, naming the ROADMAP item that ports it: only
---dump_visualizations (the episode videos) is left.  --backend xla runs
+Every flag of the JAX package runs: --dump_visualizations writes each
+episode's video beside the replay record.  --backend xla runs
 the plain PyTorch counterpart of the JAX package's kernel-free backend,
 with every --contact_mode.  The JAX package's TPU execution knobs
 (--exec_mode, --chunk_loop, --env_chunk, --obs_chunk, --dp_devices) do
@@ -46,7 +44,9 @@ def config_parser(parser: ArgumentParser = None) -> ArgumentParser:
                              "tools/export_tasks_npz.py")
     parser.add_argument("--eval", action="store_true", default=False)
     parser.add_argument("--dump_visualizations", action="store_true",
-                        default=False)
+                        default=False,
+                        help="write each episode's video to "
+                             "visualizations/ beside the replay record")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
 
@@ -156,20 +156,8 @@ def config_parser(parser: ArgumentParser = None) -> ArgumentParser:
     return parser
 
 
-# flag -> (its default, the ROADMAP item that ports the other values)
-_UNPORTED = {
-    "dump_visualizations": (False, "Queue 1 item 7"),
-}
-
-
 def apply_presets(args):
-    """Post-parse preset expansion (call right after parse_args); raises
-    NotImplementedError for a flag value the port cannot reproduce."""
-    for flag, (default, item) in _UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: flingbot_tpu_torch runs "
-                f"only {default!r} (ROADMAP {item})")
+    """Post-parse preset expansion (call right after parse_args)."""
     if args.flex_parity:
         args.spring_mode = "gs"
         args.iterations = 30

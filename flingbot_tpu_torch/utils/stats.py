@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from flingbot_tpu_torch.learning.memory import read_step, step_keys
+from flingbot_tpu_torch.utils.vis import draw_action
 
 _ERROR_FLAGS = ("failed_grasp", "cloth_stuck", "timed_out")
 
@@ -33,9 +34,8 @@ def collect_stats(
 ) -> Optional[Dict]:
     """Coverage statistics of the last `num_points` steps of a replay
     directory (collect_stats, stats.py:38-179); None when there is no
-    record.  The image panels are `img_before_after` and `img_value_map`;
-    the action-annotated panel `img_action` needs utils/vis, which the
-    port does not have yet."""
+    record.  The image panels are `img_before_after`, `img_action` (the
+    action drawn on the observation before it) and `img_value_map`."""
     keys = step_keys(replay_dir)
     if not keys:
         return None
@@ -129,12 +129,24 @@ def collect_stats(
         k = random.choice(keys) if keys else None
         if k is None:
             break
-        _, g = read_step(replay_dir, k)
+        attrs, g = read_step(replay_dir, k)
         if "pretransform_observations" in g and "next_observations" in g:
             before = g["pretransform_observations"][:3]
             after = g["next_observations"][:3]
             retval["img_before_after"] = np.concatenate(
                 [before, after], axis=2)  # (3, H, 2W)
+            # action-annotated panel (utils.py:377-390 draws the grasp
+            # line on the observation); a drawing failure leaves it out,
+            # as the JAX package's collect_stats does
+            if "pretransform_pixels" in g:
+                try:
+                    img = draw_action(
+                        np.transpose(before, (1, 2, 0)).copy(),
+                        str(attrs.get("action_primitive", "fling")),
+                        np.asarray(g["pretransform_pixels"]), thickness=2)
+                    retval["img_action"] = np.transpose(img, (2, 0, 1))
+                except Exception:
+                    pass
             if "value_map" in g:
                 vm = np.asarray(g["value_map"], np.float32)
                 vm = (vm - vm.min()) / max(vm.max() - vm.min(), 1e-9)

@@ -23,6 +23,7 @@ from flingbot_tpu_torch.engine.topology import (
 from flingbot_tpu_torch.env import primitives as tprim
 from flingbot_tpu_torch.env.action import select_action
 from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+from flingbot_tpu_torch.env.coverage import GRID
 from flingbot_tpu_torch.env.observation import (
     Observation, compute_observation)
 from flingbot_tpu_torch.env.sim_env import step_begin
@@ -409,17 +410,28 @@ def test_mixed_step_coverage_and_replay(mixed_step):
           np.median(jn, 0), jn.max(0), "port", tn.min(0), np.median(tn, 0),
           tn.max(0))
 
-    def inside(x, sample):
+    def inside(x, sample, widen=0.0):
         # a band widened by 4 float32 ulps: the JAX coverage's division
         # by GRID rounds differently from IEEE by 1 ulp on some hosts
-        return ((x >= sample.min(0) * (1 - 5e-7))
-                & (x <= sample.max(0) * (1 + 5e-7)))
+        return ((x >= sample.min(0) * (1 - 5e-7) - widen)
+                & (x <= sample.max(0) * (1 + 5e-7) + widen))
 
-    # a run's post-action coverage is one draw of a heavy-tailed spread
-    # (the fling's reaches 0.0073-0.0101 under 1e-7 input noise), so the
-    # port's draw lies inside the JAX spread, and each side's median
-    # inside the other's spread
-    assert inside(port, jn).all()
+    # the coverage rounds each particle's stamp edge (off +- r) / span to
+    # a grid index, so a draw takes values about one stamp edge apart: a
+    # single draw lies inside the JAX spread widened on each side by the
+    # most one rounded edge can move it, one row or column of the
+    # GRID x GRID grid (coverage.py's arithmetic on each env's end state)
+    row = grid_row_area(r["jend"])
+    print("one coverage-grid row per env (m^2):", row)
+    assert inside(port, jn, row).all()
+    # the draw of one host that fell outside the plain spread (env 1,
+    # stretch-drag: 0.00898542 against 0.00894799-0.00894802) lies inside
+    # the band; a draw beyond it does not
+    host_jn = np.array([0.00894799, 0.00894802], np.float32)
+    assert inside(np.float32(0.00898542), host_jn, row[1])
+    assert not inside(host_jn.max() * (1 + 5e-7) + 1.01 * row[1], host_jn,
+                      row[1])
+    # each side's median inside the other's spread
     assert inside(np.median(tn, 0), jn).all()
     assert inside(np.median(jn, 0), tn).all()
     # and within the slice tests' rtol 0.6, from their JAX-vs-JAX spread
@@ -446,6 +458,23 @@ def test_mixed_step_coverage_and_replay(mixed_step):
     prims = sorted(read_step(r["replay"], k)[0]["action_primitive"]
                    for k in keys)
     assert prims == sorted(PRIMS)
+
+
+def grid_row_area(state) -> np.ndarray:
+    """(B,) area in m^2 of one row (or column) of each env's coverage grid:
+    GRID cells of span_x * span_z over the active particles' AABB, in
+    float32 as env/coverage.py computes the spans.  state: a JAX batch
+    (positions (B, N, 3), active (B, N))."""
+    pos = np.asarray(state.positions, np.float32)
+    act = np.asarray(state.active)
+    x = np.where(act, pos[..., 0], np.nan)
+    z = np.where(act, pos[..., 2], np.nan)
+    grid = np.float32(GRID)
+    span_x = np.maximum((np.nanmax(x, 1) - np.nanmin(x, 1)) / grid,
+                        np.float32(1e-6))
+    span_z = np.maximum((np.nanmax(z, 1) - np.nanmin(z, 1)) / grid,
+                        np.float32(1e-6))
+    return grid * span_x * span_z
 
 
 @pytest.mark.parametrize("flags,attr,value", [

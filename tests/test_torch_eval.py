@@ -92,6 +92,16 @@ def test_unported_options_raise(flag, match):
         main(["--tasks", HARD, "--device", "cpu"] + flag)
 
 
+@pytest.mark.parametrize("mode", ["chunked", "fused"])
+def test_exec_mode_is_accepted_and_ignored(mode):
+    """--exec_mode takes both of the JAX eval_quality's values, as
+    run_sim's config does (a TPU execution knob)."""
+    from flingbot_tpu_torch.eval_quality import parse_args
+
+    args = parse_args(["--tasks", HARD, "--exec_mode", mode])
+    assert args.exec_mode == mode
+
+
 def test_eval_refuses_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -14,6 +14,11 @@ from flingbot_tpu_torch import resolve_device
 from flingbot_tpu_torch.engine import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the single-env surface and the report tools, which the walk must reach
+NEW_MODULES = ("flingbot_tpu_torch.env.sim_env",
+               "flingbot_tpu_torch.pyflex_compat",
+               "flingbot_tpu_torch.utils.vis",
+               "flingbot_tpu_torch.visualize")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -26,8 +31,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'flingbot_tpu' or m.startswith('flingbot_tpu.')]\n"
         "assert not bad, bad\n"
+        "missing = [m for m in NEW if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('flingbot_tpu_torch')]))\n")
+    code = f"NEW = {NEW_MODULES!r}\n" + code
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -40,9 +48,15 @@ def test_entry_points_refuse_a_missing_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
+    from flingbot_tpu_torch import pyflex_compat
     from flingbot_tpu_torch.env.batch_env import BatchSimEnv
+    from flingbot_tpu_torch.env.sim_env import SimEnv
     with pytest.raises(RuntimeError):
         BatchSimEnv()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimEnv(get_task_fn=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pyflex_compat.init()
     from flingbot_tpu_torch.engine.topology import build_grid_topology
     from flingbot_tpu_torch.env.scene import flat_tasks, make_batch
     from flingbot_tpu_torch.render.rasterizer import (

@@ -115,16 +115,32 @@ def test_exploration():
 @pytest.mark.parametrize("flags", [
     ["--backend", "xla"], ["--contact_mode", "sweep"],
     ["--dump_visualizations"]])
-def test_unported_flags_raise(flags):
-    """--dump_visualizations is refused (ROADMAP Queue 1 item 7);
-    --backend xla and --contact_mode sweep, refused until the xla backend
-    was ported, now pass apply_presets and reach the env's solver
-    keywords."""
+def test_unported_flags_raise(flags, tasks, tmp_path, monkeypatch):
+    """The three flags refused until their paths were ported now pass:
+    --backend xla and --contact_mode sweep pass apply_presets and reach
+    the env's solver keywords; --dump_visualizations reaches the env that
+    run_sim builds, which then records 256 frames a step (the name is
+    that of the refusals this test held until then)."""
     from flingbot_tpu_torch.utils.config import apply_presets, config_parser
 
     if flags == ["--dump_visualizations"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_sim.main(SMALL + ["--tasks", "unused.npz"] + flags)
+        built = []
+
+        class Built(Exception):
+            pass
+
+        class RecordingEnv(run_sim.BatchSimEnv):
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                built.append(self)
+                raise Built
+
+        monkeypatch.setattr(run_sim, "BatchSimEnv", RecordingEnv)
+        with pytest.raises(Built):
+            run_sim.main(SMALL + ["--tasks", tasks, "--log",
+                                  str(tmp_path / "log")] + flags)
+        assert built[0].dump_visualizations
+        assert built[0].record_frames == 256
         return
     args = apply_presets(config_parser().parse_args(
         SMALL + ["--tasks", "unused.npz"] + flags))

@@ -469,6 +469,78 @@ def test_unported_options_raise(which, tmp_path, monkeypatch):
         assert seen[k] == v, (k, seen.get(k))
 
 
+class _Stepped(Exception):
+    """Raised by a recording solver step after its first call."""
+
+
+def _first_step_kw(module, monkeypatch, run):
+    """The keywords of the first solver.step call that run() makes through
+    module.solver_step (the call stops there)."""
+    seen = {}
+
+    def recording_step(state, topo, params, **kw):
+        seen.update(kw)
+        raise _Stepped
+
+    monkeypatch.setattr(module, "solver_step", recording_step)
+    with pytest.raises(_Stepped):
+        run()
+    return seen
+
+
+def _with_defaults(step, kw):
+    import inspect
+
+    sig = inspect.signature(step)
+    return {k: kw.get(k, p.default) for k, p in sig.parameters.items()
+            if p.kind is p.KEYWORD_ONLY}
+
+
+def test_generator_defaults_match_jax(tmp_path, monkeypatch):
+    """The bare generate_tasks_batch and its CLI step the cloths with the
+    keywords the JAX function and CLI do (xla, gs, block, contacts every
+    2nd substep, 30 iterations, contacts 8 x window 16), each side's
+    solver.step defaults filled in; generate_sets passes the JAX script's
+    pallas and sort."""
+    from flingbot_tpu.engine.solver import step as jax_step
+    from flingbot_tpu_torch import generate_sets
+    from flingbot_tpu_torch.engine.solver import step as port_step
+
+    _, jtasks, _ = jax_modules()
+    kw = dict(batch=1, max_grid_dim=LATTICE, schedule=TINY, log=False,
+              **SIZES)
+    jax_kw = _with_defaults(jax_step, _first_step_kw(
+        jtasks, monkeypatch, lambda: jtasks.generate_tasks_batch(
+            str(tmp_path / "jax.hdf5"), 1, **kw)))
+    bare = _with_defaults(port_step, _first_step_kw(
+        ttasks, monkeypatch, lambda: ttasks.generate_tasks_batch(
+            str(tmp_path / "bare.npz"), 1, device="cpu", **kw)))
+    cli = _with_defaults(port_step, _first_step_kw(
+        ttasks, monkeypatch, lambda: ttasks.main([
+            "--path", str(tmp_path / "cli.npz"), "--num_tasks", "1",
+            "--batch", "1", "--max_grid_dim", str(LATTICE),
+            "--min_cloth_size", "16", "--max_cloth_size", "24",
+            "--strict_min_edge_length", "20", "--device", "cpu"])))
+    want = {k: jax_kw[k] for k in bare}
+    assert want["backend"] == "xla" and want["contact_mode"] == "block"
+    assert bare == want
+    assert cli == want
+
+    seen = {}
+
+    def recording_batch(path, num, **kw):
+        seen.update(kw)
+        return ttasks.append_tasks(path, [{"initial_coverage": 0.5,
+                                           "flatten_area": 1.0}])
+
+    monkeypatch.setattr(generate_sets, "generate_tasks_batch",
+                        recording_batch)
+    generate_sets.main(["--sets", "hard", "--out", str(tmp_path),
+                        "--device", "cpu"])
+    assert (seen["backend"], seen["spring_mode"], seen["contact_mode"],
+            seen["contact_every"]) == ("pallas", "gs", "sort", 2)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
