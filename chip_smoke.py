@@ -24,7 +24,10 @@ Phases, each printed on its own line with its wall seconds:
      set built as a MeshTopology padded to detect_mesh_caps' vertex
      capacity); the single env's launches (substeps_single,
      contacts_single: B = 1, one cloth of the hard eval set's first
-     task's dims on the 104 lattice, at the main path's knobs); plus one
+     task's dims on the 104 lattice, at the main path's knobs); the
+     solver-stage profiler's launches (substeps_profile, contacts_profile:
+     64 full 100x100 cloths, one substep of 30 iterations, contacts 8 x
+     window 16, the launches of phase 14 (a)); plus one
      aero frame of 4 of the grid kernels' compressed synthetic cloths on
      the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
@@ -122,6 +125,31 @@ Phases, each printed on its own line with its wall seconds:
      position round trip, render, and one frame on the card against the
      CPU.  Fails if a kernel never launches, a video or frame count
      disagrees, fewer than 2 rendered frames differ or a frame disagrees
+ 14  the last modules: (a) utils.profiling.profile_solver_stages at its
+     defaults (64 envs of 100x100; JAX solver.step's defaults: 4 x 30
+     Gauss-Seidel iterations, block contacts 8 x 16) with the card's name
+     and power limit, every stage finite and full step [pallas] launching
+     both kernels (counters zeroed before, read after: the
+     substeps_profile and contacts_profile rows), and one trace()
+     of a pallas step listing its kernels; (b) init_distributed at world
+     1 over NCCL and one make_dp_train_step from the round-4 checkpoint at
+     batch 128 of 4x64x64, bit-equal to train_on_batch in loss, weights
+     and BatchNorm statistics (deterministic cuDNN), and both timed; (c)
+     parallel.dryrun at world 1: 16 hard-set envs, 1-step episodes, the
+     fling programs cut as in phase 13 (c), the replay read back, one dp
+     step (counters zeroed before, read after: 16 envs at phase 4's
+     knobs on the 104 lattice, counted in the substeps and contacts
+     rows); (d) offline_train over
+     phase 9's run directory, 4 batches of 64 saved every 2, the last
+     checkpoint reloading bit-equal; (e) native: built with g++, the
+     covered area of a settled hard task within 1e-6 m^2 of its numpy
+     copy, load_cloth equal to the Python loader on a data/shirts OBJ; (f)
+     a RealWorldEnv on real_world.fakes' rig (a 1024x1600 RGB-D frame, a
+     recording UR5 pair and RG2 grippers): reset -> value_maps of the
+     round-4 checkpoint -> step, the transformed obs on the card, an
+     action within MIN_GRASP_WIDTH..MAX_GRASP_WIDTH, URScript received,
+     the replay written.  The chip machine has one card, so the dp step
+     and the dry run run at world 1; 2 ranks run on the CPU in the tests
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero.
 Exits non-zero without a result when CUDA is unavailable.
@@ -161,10 +189,12 @@ TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
                 for k in ("P", "prev", "V")})
-for _kind in ("substeps_gen", "substeps_gen128", "substeps_single"):
+for _kind in ("substeps_gen", "substeps_gen128", "substeps_single",
+              "substeps_profile"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
                 for k in ("P", "prev", "V")})
-for _kind in ("contacts_gen", "contacts_gen128", "contacts_single"):
+for _kind in ("contacts_gen", "contacts_gen128", "contacts_single",
+              "contacts_profile"):
     TOL[f"{_kind}.xyz"] = TOL["contacts.xyz"]
 # the card's frame against the CPU plain path: the card's rsqrt is
 # approximate and CUDA divides by a host scalar through its reciprocal
@@ -218,6 +248,9 @@ SINGLE_LENGTH, SINGLE_BATCH, PYFLEX_STEPS, RENDER_TOL = 2, 4, 8, 1
 # the recording BatchSimEnv step's programs stop after this many sim
 # steps, then settle (the whole step took 22.37 s on an H100)
 SINGLE_BATCH_PROGRAM = 400
+# phase 14: the profiler at its defaults (flingbot_tpu/utils/profiling.py),
+# the dry run's envs on the hard eval set
+PROFILE_ENVS, PROFILE_DIM, DRYRUN_ENVS = 64, 100, 16
 SOLVER = dict(substeps=4, iterations=16, contact_every=2,
               contact_iterations=4, contact_window=12)
 SCALES = (1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75)
@@ -306,6 +339,41 @@ def bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def covered_area_plain(positions: np.ndarray,
+                       radius: float = 0.00625) -> float:
+    """fb_covered_area in numpy, operation for operation (double
+    arithmetic on the float32 coordinates, lround, the 100 x 100 grid
+    indexed cx * 100 + cz with the reference's wrap of cz = 100): the plain
+    version the native result is held against."""
+    import numpy as np
+
+    pos = np.asarray(positions, np.float32)
+    if len(pos) == 0:
+        return 0.0
+    x = pos[:, 0].astype(np.float64)
+    z = pos[:, 2].astype(np.float64)
+    span_x = (x.max() - x.min()) / 100.0
+    span_z = (z.max() - z.min()) / 100.0
+    if span_x <= 0 or span_z <= 0:
+        return 0.0
+
+    def lround(v):  # half away from zero where it matters: v >= 0
+        f = np.floor(v)
+        return (f + (v - f >= 0.5)).astype(np.int64)
+
+    ox, oz = x - x.min(), z - z.min()
+    lo_x = np.maximum(lround((ox - radius) / span_x), 0)
+    hi_x = np.minimum(lround((ox + radius) / span_x), 100)
+    lo_z = np.maximum(lround((oz - radius) / span_z), 0)
+    hi_z = np.minimum(lround((oz + radius) / span_z), 100)
+    grid = np.zeros(10000, bool)
+    for a, b, c, d in zip(lo_x, hi_x, lo_z, hi_z):
+        idx = (np.arange(a, b + 1)[:, None] * 100
+               + np.arange(c, d + 1)[None]).reshape(-1)
+        grid[idx[idx < 10000]] = True
+    return float(grid.sum() * span_x * span_z)
 
 
 # --------------------------------------------------------------------------
@@ -481,6 +549,20 @@ def phase_kernels(device):
     rows["contacts_single"], _ = kernel_contacts(
         "contacts_single", sout, sw, svalid, [size], err, window=12,
         iterations=4)
+    # the solver-stage profiler's full step [pallas] (phase 14 (a),
+    # tasks.SEQ_SIM_KW): a frame is 4 one-substep launches of 30
+    # iterations, each followed by contacts 8 x window 16, on
+    # PROFILE_ENVS full PROFILE_DIM x PROFILE_DIM cloths
+    _, ppvec, pP, pV, pw, pvalid, _ = synthetic_inputs(
+        PROFILE_ENVS, PROFILE_DIM, PROFILE_DIM, gen, device, full=True)
+    pdims = [(PROFILE_DIM, PROFILE_DIM)] * PROFILE_ENVS
+    rows["substeps_profile"], pout = kernel_substeps(
+        "substeps_profile", ppvec, pP, pV, pw, pdims, err,
+        dict(n_sub=1, iterations=30, picker_last=False))
+    rows["contacts_profile"], _ = kernel_contacts(
+        "contacts_profile", pout, pw, pvalid, pdims, err, window=16,
+        iterations=8)
+    del pP, pV, pw, pout
     rows.update(kernel_mesh(device, err))
     rows.update(kernel_mesh_generic(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
@@ -996,11 +1078,13 @@ def phase_eval(device):
         raise AssertionError("the replay record has no best coverage")
 
 
-def phase_train(device):
+def phase_train(device, keep_dir=None):
     """The train path through run_sim.main: TRAIN_ROUNDS rounds from the
     round-4 checkpoint on the hard eval set, then the checkpoint it saved
     reloaded and one --eval round from it; launch counters zeroed before
-    and read after.  Returns the launches."""
+    and read after.  Returns the launches.  With keep_dir, the run's log
+    directory (args.pkl, the replay directory, latest_ckpt.pth) is moved
+    there for phase 14's offline training."""
     import statistics
     import tempfile
 
@@ -1105,6 +1189,10 @@ def phase_train(device):
             f"{launches}")
         if n_eval != TRAIN_EVAL_ENVS:
             raise AssertionError(f"the eval round wrote {n_eval} episodes")
+        if keep_dir is not None:
+            import shutil
+
+            shutil.move(log_dir, keep_dir)
     for name in ("substeps", "contacts"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} kernel never launched on the "
@@ -1626,6 +1714,222 @@ def phase_single_env(device):
     return launches
 
 
+def phase_last_modules(device, card, train_dir):
+    """The last modules (see the module docstring, phase 14): (a) the
+    solver-stage profiler and a trace, (b) the dp train step at world 1
+    over NCCL against train_on_batch, (c) the dry run at world 1, (d)
+    offline training over phase 9's run directory, (e) the native host
+    runtime, (f) a RealWorldEnv on a fake rig.  Returns the kernels'
+    launches: (a)'s as substeps_profile and contacts_profile, (c)'s (16
+    envs at phase 4's knobs on the 104 lattice) as substeps and
+    contacts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from flingbot_tpu_torch import native, offline_train
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+    from flingbot_tpu_torch.engine.topology import load_cloth
+    from flingbot_tpu_torch.env.scene import flat_tasks, make_batch, scene_task
+    from flingbot_tpu_torch.env.tasks import SEQ_SIM_KW, TaskLoader
+    from flingbot_tpu_torch.learning.memory import step_keys
+    from flingbot_tpu_torch.learning.nets import MaximumValuePolicy
+    from flingbot_tpu_torch.learning.train import train_on_batch
+    from flingbot_tpu_torch.parallel import dryrun, mesh
+    from flingbot_tpu_torch.real_world import RealWorldEnv, fakes
+    from flingbot_tpu_torch.real_world import setup as rw_setup
+    from flingbot_tpu_torch.utils import profiling
+    from flingbot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    hard = os.path.join(ROOT, RECT_TASKS)
+    launches = {}
+
+    def count(what, suffix=""):
+        for k in ("substeps", "contacts"):
+            launches[k + suffix] = kernels.LAUNCHES[k]
+        log(f"  launches of {what}: {dict(kernels.LAUNCHES)}")
+
+    # (a) the solver-stage profiler at its defaults, and one traced step
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = profiling.profile_solver_stages(PROFILE_ENVS, PROFILE_DIM,
+                                             device=device)
+    log(f"  profile_solver_stages({PROFILE_ENVS} envs, {PROFILE_DIM}x"
+        f"{PROFILE_DIM}) in {time.perf_counter() - t0:.2f} s on {card}:")
+    for line in profiling.format_report(report, PROFILE_ENVS).splitlines():
+        log("    " + line)
+    if not all(math.isfinite(v) and v > 0 for v in report.values()):
+        raise AssertionError(f"a stage is not finite: {report}")
+    if min(kernels.LAUNCHES[k] for k in ("substeps", "contacts")) <= 0:
+        raise AssertionError("full step [pallas] launched no kernel")
+    count("the profiler (full step [pallas] only)", "_profile")
+    topo, state = make_batch(flat_tasks([(PROFILE_DIM, PROFILE_DIM)] * 8),
+                             device=device)
+    kw = {**SEQ_SIM_KW, "backend": "pallas"}
+    with tempfile.TemporaryDirectory(suffix="_trace") as tmp:
+        with profiling.trace(tmp):
+            step(state, topo, SolverParams(), **kw)
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    log(f"  trace() of one pallas step at 8 envs: {len(events)} events, "
+        f"{len(names)} kernel names: "
+        + ", ".join(n[:40] for n in names[:12]))
+    if not any("substeps_kernel" in n for n in names) or not any(
+            "contacts_kernel" in n for n in names):
+        raise AssertionError("the trace lacks the port's kernels")
+
+    # (b) the dp train step at world 1 over NCCL against train_on_batch
+    dev = mesh.init_distributed(f"tcp://localhost:{mesh.free_port()}", 1, 0,
+                                device=device)
+    try:
+        group = mesh.make_mesh()
+        ckpt = os.path.join(ROOT, ROUND4_CKPT)
+        a, b = (MaximumValuePolicy(["fling"], 64, device=dev)
+                for _ in range(2))
+        load_checkpoint(ckpt, a)
+        load_checkpoint(ckpt, b)
+        gen = torch.Generator(dev).manual_seed(1)
+        obs = torch.rand((TRAIN_BATCH, 4, 64, 64), generator=gen, device=dev)
+        obs[:, 3] = 1.99 + 0.01 * obs[:, 3]
+        mask = torch.zeros((TRAIN_BATCH, 64, 64), device=dev)
+        hit = torch.randint(0, 64, (TRAIN_BATCH, 2), generator=gen,
+                            device=dev)
+        mask[torch.arange(TRAIN_BATCH, device=dev), hit[:, 0], hit[:, 1]] = 1
+        reward = torch.rand(TRAIN_BATCH, generator=gen, device=dev) - 0.3
+        # deterministic cuDNN algorithms on both sides: the comparison is
+        # bit for bit
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dp = mesh.make_dp_train_step(b.nets["fling"].net,
+                                         b.nets["fling"].optimizer, group)
+            loss_a = train_on_batch(a.nets["fling"], obs, mask, reward)
+            loss_b = dp(obs, mask, reward)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        sa = a.nets["fling"].net.state_dict()
+        sb = b.nets["fling"].net.state_dict()
+        same = loss_a == loss_b and all(torch.equal(sa[k], sb[k]) for k in sa)
+        log(f"  dp step (world 1, {dist.get_backend(group)}) at batch "
+            f"{TRAIN_BATCH}: loss {loss_b!r} vs train_on_batch {loss_a!r}; "
+            f"weights and BatchNorm statistics bit-equal: {same}")
+        if not same:
+            raise AssertionError("the dp step differs from train_on_batch")
+        ms_dp = cuda_ms(lambda: dp(obs, mask, reward), 10, warmup=2)
+        ms_one = cuda_ms(lambda: train_on_batch(a.nets["fling"], obs, mask,
+                                                reward), 10, warmup=2)
+        log(f"  dp step {ms_dp:.3f} ms vs train_on_batch {ms_one:.3f} ms at "
+            f"batch {TRAIN_BATCH} on {card} (10 steps after 2)")
+
+        # (c) the dry run at world 1: collect, replay, one dp step
+        with tempfile.TemporaryDirectory(suffix="_dryrun") as tmp:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = dryrun.dryrun(tmp, group, tasks=hard, num_envs=DRYRUN_ENVS,
+                                env_kw=dict(
+                                    max_grid_dim=104, render_dim=256,
+                                    num_rotations=12, scale_factors=SCALES,
+                                    chunk_steps=192, self_collision=True,
+                                    fling_speed=6e-3,
+                                    max_program_steps=SINGLE_BATCH_PROGRAM,
+                                    **SOLVER))
+            torch.cuda.synchronize()
+            log(f"  dry run at world 1: {out} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            count("the dry run")
+            if out["episodes"] != DRYRUN_ENVS or min(
+                    kernels.LAUNCHES[k] for k in ("substeps",
+                                                  "contacts")) <= 0:
+                raise AssertionError("the dry run's collect fell short")
+    finally:
+        dist.destroy_process_group()
+
+    # (d) offline training over phase 9's run directory
+    before = set(os.listdir(train_dir))
+    t0 = time.perf_counter()
+    trained = offline_train.main([
+        "--log", train_dir, "--steps", "4", "--batch_size", "64",
+        "--save_every", "2", "--device", str(device)])
+    torch.cuda.synchronize()
+    saved = sorted(f for f in set(os.listdir(train_dir)) - before
+                   if f.startswith("ckpt_"))
+    back = MaximumValuePolicy(["fling"], 64, device=device)
+    load_checkpoint(os.path.join(train_dir, "latest_ckpt.pth"), back)
+    sa = trained.nets["fling"].net.state_dict()
+    sb = back.nets["fling"].net.state_dict()
+    same = all(torch.equal(sa[k], sb[k]) for k in sa)
+    log(f"  offline_train: 4 batches of 64 over "
+        f"{len(step_keys(os.path.join(train_dir, 'replay_buffer')))} "
+        f"transitions in {time.perf_counter() - t0:.2f} s; wrote {saved}; "
+        f"latest_ckpt.pth reloads bit-equal: {same}")
+    if len(saved) != 2 or not same:
+        raise AssertionError("offline training's checkpoints")
+
+    # (e) the native host runtime
+    if not native.available:
+        raise AssertionError("fbnative did not build")
+    task = TaskLoader(hard).get_next_task()
+    topo, state = make_batch([scene_task(task)], device=device)
+    state = step(state, topo, SolverParams(), **SOLVER)
+    pos = state.positions[0].T[state.active[0]].cpu().numpy()
+    t0 = time.perf_counter()
+    got = native.covered_area(pos)
+    s_native = time.perf_counter() - t0
+    want = covered_area_plain(pos)
+    obj = os.path.join(ROOT, "data", "shirts", "shirt_00_processed.obj")
+    loaded = all(np.array_equal(x, y) for x, y in zip(
+        native.load_cloth(obj), load_cloth(obj)))
+    log(f"  native: {native.lib_path()}; covered_area of a settled hard task"
+        f" ({len(pos)} particles) {got!r} m^2 in {s_native * 1e3:.3f} ms, "
+        f"numpy copy {want!r}; load_cloth equal to the Python loader: "
+        f"{loaded}")
+    if abs(got - want) > 1e-6 or not loaded:
+        raise AssertionError("the native runtime disagrees")
+
+    # (f) a RealWorldEnv on a fake rig, driven by the round-4 checkpoint
+    rgb, depth, front, intr, c2w = fakes.synthetic_scene()
+    pair, grippers = fakes.recording_rig()
+    policy = MaximumValuePolicy(["fling"], 64, device=device)
+    load_checkpoint(os.path.join(ROOT, ROUND4_CKPT), policy)
+    with tempfile.TemporaryDirectory(suffix="_real") as tmp:
+        env = RealWorldEnv(
+            replay_buffer_path=tmp, scale_factors=SCALES, render_dim=256,
+            top_camera=fakes.FakeCamera(rgb, depth),
+            front_camera=fakes.FakeCamera(rgb, front), ur5_pair=pair,
+            grippers=grippers, cam_intrinsics=intr, cam_extrinsics=c2w,
+            episode_length=1, device=device)
+        t0 = time.perf_counter()
+        obs = env.reset()
+        vm = policy.value_maps(obs)
+        action = env._select_action(vm)
+        env.step(vm)
+        torch.cuda.synchronize()
+        sent = pair.left.sent + pair.right.sent
+        written = step_keys(tmp)
+    log(f"  RealWorldEnv on a {rgb.shape} frame: obs {tuple(obs.shape)} on "
+        f"{obs.device}; action "
+        + ("none" if action is None else
+           f"width {action['width']:.4f} m, rotation {action['rotation']}, "
+           f"scale {action['scale']}")
+        + f"; {len(sent)} URScript programs sent; replay {written}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if obs.device.type != "cuda" or tuple(obs.shape) != (96, 4, 64, 64):
+        raise AssertionError("the transformed obs are not on the card")
+    if action is None or not (rw_setup.MIN_GRASP_WIDTH <= action["width"]
+                              <= rw_setup.MAX_GRASP_WIDTH):
+        raise AssertionError(f"no action within the grasp width: {action}")
+    if not any(p.startswith("def wp():") for p in sent) or len(written) != 1:
+        raise AssertionError("the rig got no fling or the replay is empty")
+    return launches
+
+
 def phase_aero(state, topo, device):
     """The aero path: the rect path's crumpled start states with drag, lift
     and wind set, through the one-substep launches (18 interpreter steps
@@ -1716,7 +2020,7 @@ def main():
 
     device = torch.device("cuda")
     with Phase("0 card"):
-        phase_card()
+        card = phase_card()
     with Phase("1 build"):
         phase_build(device)
     with Phase("2 kernels vs plain"):
@@ -1734,8 +2038,12 @@ def main():
                                                device)["substeps"]
     with Phase("8 eval path"):
         phase_eval(device)
+    import tempfile
+
+    kept = tempfile.TemporaryDirectory(suffix="_kept")
+    train_dir = os.path.join(kept.name, "train")
     with Phase("9 train path"):
-        train = phase_train(device)
+        train = phase_train(device, keep_dir=train_dir)
     with Phase("10 action-space path"):
         action = phase_action_space(device)
     with Phase("11 task generation"):
@@ -1744,10 +2052,15 @@ def main():
         launches["contacts_mesh_generic"] = phase_generic_mesh(device)
     with Phase("13 single-env path"):
         single = phase_single_env(device)
+    with Phase("14 last modules"):
+        last = phase_last_modules(device, card, train_dir)
+    kept.cleanup()
     launches["substeps_single"] = single["substeps"]
     launches["contacts_single"] = single["contacts"]
     for name in ("substeps", "contacts"):
-        launches[name] += train[name] + action[name] + gen.pop(name)
+        launches[name] += (train[name] + action[name] + gen.pop(name)
+                           + last.pop(name))
+    launches.update(last)
     launches["substeps_jacobi"] = jacobi_launches
     launches.update(gen)
 
@@ -1771,8 +2084,10 @@ def main():
                             "flingbot_tpu/engine/pallas_kernels.py:229")}
     # the task generator's launches: 30 iterations, contacts 8 x window 16
     # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices;
-    # and the single env's (B = 1) on the 104 lattice
-    for lattice in ("gen", "gen128", "single"):
+    # the single env's (B = 1) on the 104 lattice; the profiler's
+    # (SEQ_SIM_KW: one substep of 30 iterations, contacts 8 x window 16)
+    # on its 100 lattice
+    for lattice in ("gen", "gen128", "single", "profile"):
         sources[f"substeps_{lattice}"] = sources["substeps"]
         sources[f"contacts_{lattice}"] = sources["contacts"]
     table = []
@@ -1780,7 +2095,7 @@ def main():
                  "substeps_jacobi", "substeps_gen", "contacts_gen",
                  "substeps_gen128", "contacts_gen128",
                  "contacts_mesh_generic", "substeps_single",
-                 "contacts_single"):
+                 "contacts_single", "substeps_profile", "contacts_profile"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

@@ -21,7 +21,11 @@ every spring mode and contact mode, on grid cloths, layered shirts and
 generic meshes, and both task generators; every run_sim flag, the episode
 videos of --dump_visualizations included.  Beside the batched env are the
 single-env surface (`env.sim_env.SimEnv`, `pyflex_compat`) and the replay
-gallery (`python -m flingbot_tpu_torch.visualize`).
+gallery (`python -m flingbot_tpu_torch.visualize`); data parallelism over
+torch.distributed (`parallel/`, one process per card), the solver-stage
+profiler (`utils/profiling.py`), offline training (`offline_train`), the
+g++-built host runtime (`native/`) and the dual-UR5 real-world stack
+(`real_world/`, `run_real_world`, `calibrate_camera`).
 
 Entry points run on the card (`device="cuda"`) and raise when CUDA is
 absent; they run on the CPU only when the caller passes `device="cpu"`.

@@ -64,6 +64,28 @@ from flingbot_tpu_torch.render.rasterizer import domain_randomized_palette
 OBS_CHUNK = 16
 
 
+class ShardTasks:
+    """The task source of one rank of a sharded env: of the task sequence
+    that get_task_fn yields, the tasks whose position modulo num_envs
+    falls in the rank's env slots.  At reset, and at every reload in which
+    all envs end their episodes together, each slot gets the task the
+    unsharded env gives it; a reload of only some slots takes the rank's
+    next tasks instead."""
+
+    def __init__(self, get_task_fn: Callable, slots: range, num_envs: int):
+        self.get_task_fn = get_task_fn
+        self.slots = slots
+        self.num_envs = num_envs
+        self.position = 0  # in the unsharded sequence
+
+    def __call__(self):
+        while self.position % self.num_envs not in self.slots:
+            self.get_task_fn()
+            self.position += 1
+        self.position += 1
+        return self.get_task_fn()
+
+
 class StepInfo(NamedTuple):
     selection: ActionSelection
     pre_coverage: torch.Tensor  # (B,) m^2
@@ -101,7 +123,11 @@ class BatchSimEnv:
     solver.step; the defaults are the production
     "pallas" / "sort" that run_sim and eval_quality pass (the JAX
     constructor's own are "xla" / "block").  A layered batch runs "sort"
-    whatever contact_mode says, as the JAX env does."""
+    whatever contact_mode says, as the JAX env does.  sharding: an
+    EnvSharding (parallel.make_env_sharding) with which this process
+    simulates only its rank's slots of the num_envs (the JAX env's
+    NamedSharding over the dp axis), drawing their tasks through
+    ShardTasks; num_envs is then the rank's count."""
 
     def __init__(self, get_task_fn: Optional[Callable] = None,
                  num_envs: Optional[int] = None,
@@ -126,8 +152,11 @@ class BatchSimEnv:
                  fling_speed: float = 6e-3, fixed_fling_height: float = -1.0,
                  chunk_steps: int = 64, max_program_steps: int = 4000,
                  solver_params: SolverParams | None = None, seed: int = 0,
-                 dump_visualizations: bool = False, device="cuda"):
-        self.device = resolve_device(device)
+                 dump_visualizations: bool = False, sharding=None,
+                 device="cuda"):
+        self.sharding = sharding
+        self.device = resolve_device(
+            device if sharding is None else sharding.device)
         for name, value, choices in (
                 ("spring_mode", spring_mode, SPRING_MODES),
                 ("backend", backend, BACKENDS),
@@ -146,6 +175,13 @@ class BatchSimEnv:
             contact_mode = "sort"
         if get_task_fn is not None and not num_envs:
             raise ValueError("a task source needs num_envs")
+        self.env_slots = range(num_envs or 0)
+        if sharding is not None:
+            if get_task_fn is None:
+                raise ValueError("a sharded env needs a task source")
+            self.env_slots = sharding.env_range(num_envs)
+            get_task_fn = ShardTasks(get_task_fn, self.env_slots, num_envs)
+            num_envs = len(self.env_slots)
         self.get_task_fn = get_task_fn
         self.num_envs = num_envs
         self.replay_buffer_path = replay_buffer_path
@@ -233,8 +269,14 @@ class BatchSimEnv:
         self.init_coverage = get_current_covered_area(
             self.state.positions, self.state.active)
         if self.domain_randomization:
-            self.palette = domain_randomized_palette(
-                self.generator, state.batch, self.render_dim, self.device)
+            # a sharded env draws the whole batch's palettes and keeps its
+            # slots', as the unsharded env colours them
+            n, keep = state.batch, slice(None)
+            if self.sharding is not None and self.tasks is not None:
+                n = self.get_task_fn.num_envs
+                keep = slice(self.env_slots.start, self.env_slots.stop)
+            self.palette = tuple(p[keep] for p in domain_randomized_palette(
+                self.generator, n, self.render_dim, self.device))
         self._observe()
         if self.tasks is not None:
             for i, mem in enumerate(self.memories):

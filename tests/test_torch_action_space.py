@@ -229,7 +229,8 @@ def test_observation_knobs_match():
 @pytest.fixture(scope="module")
 def mixed_step(tmp_path_factory):
     """One step of 4 file tasks, env i steered to primitive i, on the port's
-    BatchSimEnv and on the JAX package's step_begin / program_chunk /
+    BatchSimEnv (begin_step, run_program one interpreter step at a time,
+    end_step) and on the JAX package's step_begin / program_chunk /
     step_finish from the port's settled states, with a trace of both
     interpreters."""
     d = tmp_path_factory.mktemp("action_space")
@@ -263,39 +264,7 @@ def mixed_step(tmp_path_factory):
     vm = np.random.default_rng(3).uniform(
         size=(4, len(PRIMS), T, D, D)).astype(np.float32)
     vm[np.arange(4), np.arange(4)] += 10.0
-    jsel, jpre, jpos, jcarry, jprog = jenv._vm_begin(
-        jenv.state, jenv.topo, jenv.params, jnp.asarray(vm), jenv.obs,
-        jnp.asarray(jenv.rotations))
     max_steps = MAX_PROGRAM_STEPS + tprim.STABLE_MAX_STEPS
-    chunk = jax.jit(jax.vmap(
-        lambda c, tp, pg: jprim.program_chunk(
-            c, tp, jenv.params, pg, chunk_steps=1, max_steps=max_steps,
-            **jenv.sim_kw), in_axes=(0, 0, 0)))
-    tsel, tpre, _, tcarry, tprog = step_begin(
-        env.state, torch.from_numpy(vm), env.obs, env.rotations,
-        env.prim_cfg, env.pix_grasp_dist, env.action_primitives,
-        env.pix_drag_dist, env.pix_place_dist)
-    kinds = np.asarray(jprog.kind)
-    trace = []
-    for _ in range(max_steps + 2 * kinds.shape[1]):
-        jcarry, done = chunk(jcarry, jenv.topo, jprog)
-        tcarry, _ = tprim.program_chunk(
-            tcarry, env.topo, env.params, tprog, chunk_steps=1,
-            max_steps=max_steps, sim_kw=env.sim_kw)
-        trace.append((np.asarray(jcarry.pc), tcarry.pc.numpy(),
-                      np.asarray(jcarry.state.picker_pos),
-                      tcarry.state.picker_pos.numpy(),
-                      np.asarray(jcarry.total_steps),
-                      np.asarray(jcarry.state.positions)
-                      if len(trace) < 8 else None,
-                      canonical(tcarry.state.positions, env.topo,
-                                jcarry.state.positions)
-                      if len(trace) < 8 else None))
-        if bool(np.all(np.asarray(done))):
-            break
-    _, post_cov, _ = jax.vmap(jax_finish)(jcarry, jpos)
-    obs0 = Observation(*(x.clone() for x in env.obs))
-    env.step(torch.from_numpy(vm))
     # both steps again from the settled states under 1e-7 relative noise,
     # NOISE_SEEDS copies of the 4 envs in one batch: how far chaos alone
     # moves each side's post-action coverage
@@ -307,21 +276,65 @@ def mixed_step(tmp_path_factory):
             1 + 1e-7 * np.random.default_rng(seed).standard_normal(
                 (4,) + shape[1:]) for seed in NOISE_SEEDS]).astype(np.float32)
 
-    def tile(x):
-        return jnp.asarray(np.asarray(x)[idx])
+    def jax_side():
+        """The JAX step one interpreter step at a time (its trace), then
+        its noisy copies."""
+        jsel, jpre, jpos, jcarry, jprog = jenv._vm_begin(
+            jenv.state, jenv.topo, jenv.params, jnp.asarray(vm), jenv.obs,
+            jnp.asarray(jenv.rotations))
+        chunk = jax.jit(jax.vmap(
+            lambda c, tp, pg: jprim.program_chunk(
+                c, tp, jenv.params, pg, chunk_steps=1, max_steps=max_steps,
+                **jenv.sim_kw), in_axes=(0, 0, 0)))
+        trace = []
+        for _ in range(max_steps + 2 * jprog.kind.shape[1]):
+            jcarry, done = chunk(jcarry, jenv.topo, jprog)
+            trace.append((np.asarray(jcarry.pc),
+                          np.asarray(jcarry.state.picker_pos),
+                          np.asarray(jcarry.total_steps),
+                          np.asarray(jcarry.state.positions)
+                          if len(trace) < 8 else None))
+            if bool(np.all(np.asarray(done))):
+                break
+        _, post_cov, _ = jax.vmap(jax_finish)(jcarry, jpos)
 
-    jpos0 = np.asarray(jenv.state.positions)[idx]
-    jstate = jax.tree_util.tree_map(tile, jenv.state).replace(
-        positions=jnp.asarray(jpos0 * noise(jpos0.shape)))
-    jtopo = jax.tree_util.tree_map(tile, jenv.topo)
-    _, _, npos, ncarry, nprog = jenv._vm_begin(
-        jstate, jtopo, jenv.params, jnp.asarray(vm[idx]),
-        jax.tree_util.tree_map(tile, jenv.obs), jnp.asarray(jenv.rotations))
-    done = False
-    while not done:
-        ncarry, d = chunk(ncarry, jtopo, nprog)
-        done = bool(np.all(np.asarray(d)))
-    jnoisy = np.asarray(jax.vmap(jax_finish)(ncarry, npos)[1])
+        def tile(x):
+            return jnp.asarray(np.asarray(x)[idx])
+
+        jpos0 = np.asarray(jenv.state.positions)[idx]
+        jstate = jax.tree_util.tree_map(tile, jenv.state).replace(
+            positions=jnp.asarray(jpos0 * noise(jpos0.shape)))
+        jtopo = jax.tree_util.tree_map(tile, jenv.topo)
+        _, _, npos, ncarry, nprog = jenv._vm_begin(
+            jstate, jtopo, jenv.params, jnp.asarray(vm[idx]),
+            jax.tree_util.tree_map(tile, jenv.obs),
+            jnp.asarray(jenv.rotations))
+        done = False
+        while not done:
+            ncarry, d = chunk(ncarry, jtopo, nprog)
+            done = bool(np.all(np.asarray(d)))
+        jnoisy = np.asarray(jax.vmap(jax_finish)(ncarry, npos)[1])
+        return jsel, jpre, jprog, trace, post_cov, jnoisy, jcarry.state
+
+    jsel, jpre, jprog, jtrace, post_cov, jnoisy, jend = jax_side()
+    # the port's side: the env's own step, one interpreter step at a time
+    # to its end, then BatchSimEnv.end_step, then its noisy copies
+    tsel, tpre, _, _, tprog = step_begin(
+        env.state, torch.from_numpy(vm), env.obs, env.rotations,
+        env.prim_cfg, env.pix_grasp_dist, env.action_primitives,
+        env.pix_drag_dist, env.pix_place_dist)
+    obs0 = Observation(*(x.clone() for x in env.obs))
+    start = env.begin_step(torch.from_numpy(vm))
+    tcarry, chunks, ttrace = start.carry, 0, []
+    for _ in range(max_steps + 2 * tprog.kind.shape[1]):
+        tcarry, tdone = env.run_program(start, tcarry, 1)
+        chunks += 1
+        ttrace.append((tcarry.pc.numpy(), tcarry.state.picker_pos.numpy(),
+                       tcarry.state.positions.clone()
+                       if len(ttrace) < 8 else None))
+        if bool(tdone.all()):
+            break
+    env.end_step(start, tcarry, chunks)
     tidx = torch.from_numpy(idx)
     tstate = settled.index(tidx)
     tstate = tstate.replace(positions=tstate.positions * torch.from_numpy(
@@ -339,11 +352,19 @@ def mixed_step(tmp_path_factory):
             max_steps=max_steps, sim_kw=env.sim_kw)
         done = bool(d.all())
     tnoisy = tstep_finish(ncarry, tpos0)[1].numpy()
+    # the two traces step for step, as long as the JAX one; a port env
+    # that ended first stays as it is (program_chunk), so its last entry
+    # repeats
+    trace = []
+    for k, (jpc, jpick, steps, jpos) in enumerate(jtrace):
+        tpc, tpick, tpos = ttrace[min(k, len(ttrace) - 1)]
+        trace.append((jpc, tpc, jpick, tpick, steps, jpos,
+                      None if jpos is None else canonical(
+                          tpos, env.topo, jpos)))
     return dict(env=env, jenv=jenv, jsel=jsel, jpre=jpre, jprog=jprog,
                 tsel=tsel, tpre=tpre, tprog=tprog, trace=trace,
                 post_cov=post_cov, jax_noisy=jnoisy.reshape(S, 4),
-                port_noisy=tnoisy.reshape(S, 4),
-                jend=jcarry.state, replay=replay)
+                port_noisy=tnoisy.reshape(S, 4), jend=jend, replay=replay)
 
 
 @needs_jax

@@ -14,11 +14,23 @@ from flingbot_tpu_torch import resolve_device
 from flingbot_tpu_torch.engine import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the single-env surface and the report tools, which the walk must reach
+# the single-env surface and the report tools, and the last modules
+# (parallelism, the profiler, offline training, the native runtime, the
+# real-world stack), which the walk must reach
 NEW_MODULES = ("flingbot_tpu_torch.env.sim_env",
                "flingbot_tpu_torch.pyflex_compat",
                "flingbot_tpu_torch.utils.vis",
-               "flingbot_tpu_torch.visualize")
+               "flingbot_tpu_torch.visualize",
+               "flingbot_tpu_torch.parallel.mesh",
+               "flingbot_tpu_torch.parallel.dryrun",
+               "flingbot_tpu_torch.utils.profiling",
+               "flingbot_tpu_torch.offline_train",
+               "flingbot_tpu_torch.native",
+               "flingbot_tpu_torch.env.exceptions",
+               "flingbot_tpu_torch.real_world.real_world_env",
+               "flingbot_tpu_torch.real_world.fakes",
+               "flingbot_tpu_torch.run_real_world",
+               "flingbot_tpu_torch.calibrate_camera")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -67,6 +79,22 @@ def test_entry_points_refuse_a_missing_card():
         build_grid_topology(16, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         domain_randomized_palette(torch.Generator().manual_seed(0), 1, 8)
+    # the last modules' entry points
+    from flingbot_tpu_torch import (
+        calibrate_camera, offline_train, run_real_world)
+    from flingbot_tpu_torch.parallel import dryrun, mesh
+    from flingbot_tpu_torch.real_world import RealWorldEnv
+    from flingbot_tpu_torch.utils import profiling
+    for call in (profiling.profile_solver_stages,
+                 lambda: offline_train.main(["--log", "unused"]),
+                 RealWorldEnv,
+                 lambda: run_real_world.main([]),
+                 lambda: calibrate_camera.main([]),
+                 lambda: dryrun.dryrun_multichip(1),
+                 lambda: dryrun.main(["--ranks", "1"]),
+                 mesh.init_distributed):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     assert resolve_device("cpu").type == "cpu"
     topo, state = make_batch(flat_tasks([(16, 16)]), max_grid_dim=16,
                              device="cpu")

@@ -282,7 +282,9 @@ def test_batch_env_on_mesh_caps(sheet):
     loaded through scene_task and the generic mesh path, reset (settle,
     observe), then one step; the settle frame, the selected action and the
     pre-action coverage against the JAX env's functions on the same tasks
-    (the xla backend's sorted contact group)."""
+    (the xla backend's sorted contact group).  The step runs in chunks of
+    8 interpreter steps: an env that is done stays as it is, so the chunk
+    size changes only how many no-op steps follow the programs' end."""
     from flingbot_tpu.env.observation import compute_observation
     from flingbot_tpu.env.scene import set_scene
     from flingbot_tpu.env.sim_env import PARK_PICKERS, step_begin
@@ -313,7 +315,7 @@ def test_batch_env_on_mesh_caps(sheet):
                       mesh_caps=MESH_CAPS, obs_dim=32, num_rotations=3,
                       scale_factors=scales, render_dim=128,
                       domain_randomization=False, max_program_steps=40,
-                      device="cpu", **KW)
+                      chunk_steps=8, device="cpu", **KW)
     obs = env.reset()
     assert isinstance(env.topo, MeshTopology)
     settled = env.state

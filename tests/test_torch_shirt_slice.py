@@ -24,7 +24,6 @@ from flingbot_tpu.env.primitives import (
 from flingbot_tpu.env.shirts import write_shirt_obj
 from flingbot_tpu.env.sim_env import PARK_PICKERS, step_begin, step_finish
 from flingbot_tpu_torch.engine.topology import compute_layered_spec
-from flingbot_tpu_torch.env import primitives as tprim
 from flingbot_tpu_torch.env.batch_env import BatchSimEnv
 from flingbot_tpu_torch.env.scene import make_batch, shirt_task
 from flingbot_tpu_torch.env.sim_env import step_begin as t_step_begin
@@ -102,16 +101,19 @@ def run(tmp_path_factory):
                                         max_steps=max_steps, **jkw)))
 
     # the port's interpreter, stepped alongside for the trace
-    tsel, tpre, tpos, tcarry, tprog = t_step_begin(
+    tsel, tpre, *_ = t_step_begin(
         env.state, torch.as_tensor(vm), env.obs, env.rotations,
         env.prim_cfg, PIX)
+    # the env's own step: its first interpreter steps traced, the rest
+    # run in chunks, then BatchSimEnv.end_step
+    start = env.begin_step(torch.as_tensor(vm))
+    tcarry, chunks = start.carry, 0
     trace = []
     for _ in range(max_steps + 2 * prog.kind.shape[1]):
         carry, done = chunk(carry, jtopo, prog)
         if len(trace) < 200 and np.asarray(carry.pc).max() <= 4:
-            tcarry, _ = tprim.program_chunk(
-                tcarry, env.topo, env.params, tprog, chunk_steps=1,
-                max_steps=max_steps, sim_kw=env.sim_kw)
+            tcarry, _ = env.run_program(start, tcarry, 1)
+            chunks += 1
             trace.append((np.asarray(carry.pc), tcarry.pc.numpy(),
                           np.asarray(carry.state.picker_pos),
                           tcarry.state.picker_pos.numpy(),
@@ -121,7 +123,11 @@ def run(tmp_path_factory):
         if bool(np.all(np.asarray(done))):
             break
     jfinal, post_cov, term = jax.vmap(step_finish)(carry, pre_pos)
-    env.step(torch.as_tensor(vm))
+    tdone = torch.zeros(1, dtype=torch.bool)
+    while not bool(tdone.all()):
+        tcarry, tdone = env.run_program(start, tcarry, env.chunk_steps)
+        chunks += 1
+    env.end_step(start, tcarry, chunks)
     return dict(jstate=jsettled, settled=settled, jobs=jobs, tobs=tobs,
                 sel=sel, pre_cov=pre_cov, post_cov=post_cov, term=term,
                 tsel=tsel, tpre=tpre, trace=trace, env=env,

@@ -168,35 +168,39 @@ def test_contact_modes_on_sorted_inputs(mode, filt):
         assert kernels.LAUNCHES == before  # the xla backend launches none
     moved = float((out - P).abs().max())
     assert moved > 1e-4, "no contact fired"
-    for b in range(P.shape[0]):
-        jP, jprev = jnp.asarray(P[b].numpy()), jnp.asarray(prev[b].numpy())
-        jw, jm = jnp.asarray(w[b].numpy()), jnp.asarray(moving[b].numpy())
-        jv = jnp.asarray(valid[b].numpy())
-        jperm, jinv = jnp.asarray(perm[b].numpy()), jnp.asarray(inv[b].numpy())
-        jrest = None if rest is None else jnp.asarray(rest[b].numpy())
-        jrs = None if rest is None else jrest[:, jperm]
+
+    # the JAX function of the mode on one env, compiled as the JAX
+    # package runs it (under jit)
+    @jax.jit
+    def reference(jP, jprev, jw, jm, jv, jperm, jinv, jrest):
+        jrs = None if jrest is None else jrest[:, jperm]
         if mode == "block":
-            ref = jcol.solve_contacts_block(
+            return jcol.solve_contacts_block(
                 jP, jw, jm, jperm, jinv, jparams, rest_dist=jparams.radius,
                 iterations=8, lattice_w=lat, rest_sorted=jrs, active=jv,
-                prev=jprev)
-        elif mode == "sweep":
-            ref = jcol.solve_contacts_sweep(
+                prev=jprev), None
+        if mode == "sweep":
+            return jcol.solve_contacts_sweep(
                 jP, jw, jm, jperm, jinv, jparams, rest_dist=jparams.radius,
-                lattice_w=lat, rest_sorted=jrs, active=jv, prev=jprev)
-        elif mode == "table":
+                lattice_w=lat, rest_sorted=jrs, active=jv, prev=jprev), None
+        if mode == "table":
             nbr_j = (jcol.find_neighbors_hash(jP, jm, jparams.radius, jrest)
                      if mesh else jcol.find_neighbors_grid(
                          jP, jm, W, jparams.radius))
+            return jcol.solve_contacts(jP, jw, jm, *nbr_j,
+                                       rest_dist=jparams.radius), nbr_j
+        return jcol.contact_group(
+            jP, jprev, jw, jv, jparams, rest_dist=jparams.radius,
+            lattice_w=lat, rest_positions=jrest, window=16, iterations=8,
+            backend="xla"), None
+
+    for b in range(P.shape[0]):
+        ref, nbr_j = reference(*(
+            None if x is None else jnp.asarray(x[b].numpy())
+            for x in (P, prev, w, moving, valid, perm, inv, rest)))
+        if mode == "table":
             assert np.array_equal(nbr[b].numpy(), np.asarray(nbr_j[0]))
             assert np.array_equal(mask[b].numpy(), np.asarray(nbr_j[1]))
-            ref = jcol.solve_contacts(jP, jw, jm, *nbr_j,
-                                      rest_dist=jparams.radius)
-        else:
-            ref = jcol.contact_group(
-                jP, jprev, jw, jv, jparams, rest_dist=jparams.radius,
-                lattice_w=lat, rest_positions=jrest, window=16,
-                iterations=8, backend="xla")
         np.testing.assert_allclose(out[b].numpy(), np.asarray(ref), rtol=0,
                                    atol=CONTACT_TOL)
 
