@@ -1,0 +1,8 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated over the window (the
+peak statistics reset at its start), in GiB."""
+
+
+def read(run):
+    if run.window_peak_bytes is None:
+        return None
+    return run.window_peak_bytes / 2 ** 30

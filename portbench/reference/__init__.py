@@ -1,0 +1,2 @@
+"""The benchmark's plain reference: PyTorch and NumPy only, nothing of the
+program."""
