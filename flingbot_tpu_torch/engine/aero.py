@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from flingbot_tpu_torch.engine.topology import shift2d
+from flingbot_tpu_torch.utils import trace
 
 _EPS = 1e-9
 
@@ -74,7 +75,7 @@ def aero_accel(V: torch.Tensor, normals: torch.Tensor, params,
                moving: torch.Tensor) -> torch.Tensor:
     """Acceleration from drag / lift / wind.  V, normals (B, 3, ...);
     moving (B, ...)."""
-    wind = torch.tensor(params.wind, dtype=V.dtype, device=V.device).view(
+    wind = trace.upload(params.wind, dtype=V.dtype, device=V.device).view(
         (1, 3) + (1,) * (V.dim() - 2))
     vr = V - wind
     speed = torch.sqrt(vr[:, 0] * vr[:, 0] + vr[:, 1] * vr[:, 1]

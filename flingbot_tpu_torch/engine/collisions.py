@@ -30,6 +30,7 @@ from flingbot_tpu_torch.engine import kernels
 from flingbot_tpu_torch.engine.kernels import (
     PACK_IMMOBILE_BIT, PACK_INACTIVE_BIT)
 from flingbot_tpu_torch.engine.state import SolverParams
+from flingbot_tpu_torch.utils import trace
 
 INT32_BIG = 2 ** 30
 _EPS = 1e-9
@@ -67,7 +68,7 @@ def contact_params(params: SolverParams, rest_dist: float, batch: int,
                    device) -> torch.Tensor:
     """(B, 8) f32 contact kernel parameters (pallas_kernels.py:360-361)."""
     f = np.float32
-    row = torch.tensor(
+    row = trace.upload(
         [f(rest_dist), 1.0, f(params.particle_friction)
          * f(params.dynamic_friction), f(params.dynamic_friction),
          f(params.collision_distance), 0.0, 0.0, 0.0],
@@ -100,10 +101,10 @@ def sort_particles(P, prev, w, active, *, rest_dist, lattice_w=None,
     n = P.shape[2]
     # divide by a device tensor: a CUDA division by a host scalar
     # multiplies by its reciprocal and can move a particle across a cell
-    rd = torch.tensor(rest_dist, dtype=torch.float32, device=P.device)
+    rd = trace.upload(rest_dist, dtype=torch.float32, device=P.device)
     cell = torch.clamp(torch.floor(P / rd).to(torch.int32) + 512, 0, 1023)
     keys = torch.where(active, morton_code(cell),
-                       torch.tensor(INT32_BIG, dtype=torch.int32,
+                       trace.upload(INT32_BIG, dtype=torch.int32,
                                     device=P.device))
     arrays = [P[:, 0], P[:, 1], P[:, 2], prev[:, 0], prev[:, 1], prev[:, 2]]
     if rest_positions is None:
@@ -132,17 +133,20 @@ def contact_group(P, prev, w, active, params: SolverParams, *, rest_dist,
     "xla") -> _contacts_sorted_flat, collisions.py:399-402)."""
     if backend not in ("pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    order, srt = sort_particles(P, prev, w, active, rest_dist=rest_dist,
-                                lattice_w=lattice_w,
-                                rest_positions=rest_positions)
-    cp = contact_params(params, rest_dist, P.shape[0], P.device)
-    project = kernels.contacts if backend == "pallas" \
-        else kernels.contacts_plain
-    ox, oy, oz = project(cp, *srt[:7], rests=srt[7:] or None,
-                         window=window, iterations=iterations)
-    out = torch.empty_like(P)
-    for c, o in enumerate((ox, oy, oz)):
-        out[:, c].scatter_(1, order, o)
+    with trace.span("solver.contacts.sort"):
+        order, srt = sort_particles(P, prev, w, active, rest_dist=rest_dist,
+                                    lattice_w=lattice_w,
+                                    rest_positions=rest_positions)
+    with trace.span("solver.contacts.project"):
+        cp = contact_params(params, rest_dist, P.shape[0], P.device)
+        project = kernels.contacts if backend == "pallas" \
+            else kernels.contacts_plain
+        ox, oy, oz = project(cp, *srt[:7], rests=srt[7:] or None,
+                             window=window, iterations=iterations)
+    with trace.span("solver.contacts.apply"):
+        out = torch.empty_like(P)
+        for c, o in enumerate((ox, oy, oz)):
+            out[:, c].scatter_(1, order, o)
     return out
 
 

@@ -34,6 +34,12 @@ substep's entry positions.
     kernel-free backend: it launches no kernel on any device.
 Springs are Chebyshev-accelerated for "chebyshev", and on meshes and
 layered shirts for "gs" too (solver.py:737, 800, 878).
+
+Spans (utils/trace.py, recorded while tracing is on): every step is one
+solver.step; inside it the grid step on the pallas backend records
+solver.prep, solver.substeps (each launch) and solver.contacts.apply,
+and the contact group solver.contacts.sort, .project and .apply.  Each
+per-frame upload of a constant is a counted solver.sync (trace.upload).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from flingbot_tpu_torch.engine.state import ClothState, SolverParams, f32
 from flingbot_tpu_torch.engine.topology import (
     GRID_STENCIL_CLASSES, GridTopology, LayeredGridTopology, MeshTopology,
     lattice_valid, layered_neighbours, shift2d)
+from flingbot_tpu_torch.utils import trace
 
 _EPS = 1e-9
 CHEBYSHEV_DELAY = 2  # plain Jacobi warm-up iterations
@@ -226,7 +233,7 @@ def _per_dt(dt, like: torch.Tensor):
     """dt as a 0-dim tensor on `like`'s device: a CUDA division by a host
     scalar multiplies by its reciprocal, which rounds unlike the CPU's (and
     the JAX package's) true division."""
-    return torch.as_tensor(dt, dtype=torch.float32, device=like.device)
+    return trace.upload(dt, dtype=torch.float32, device=like.device)
 
 
 def add_delta_clamped(P, P2, V, dt, dv_max, moving):
@@ -260,8 +267,8 @@ def pack_sub_params(params: SolverParams, topo: GridTopology,
     scal = [f(dt_sub), f(params.gravity[1]), f(params.damping),
             f(params.dynamic_friction), f(params.collision_distance),
             f(params.relaxation_factor), f(topo.spacing)]
-    head = torch.tensor(scal, dtype=torch.float32, device=picker_pos.device)
-    tail = torch.tensor(
+    head = trace.upload(scal, dtype=torch.float32, device=picker_pos.device)
+    tail = trace.upload(
         [f(picker_radius) + f(params.collision_distance), rho * rho],
         dtype=torch.float32, device=picker_pos.device)
     return torch.cat([
@@ -316,29 +323,31 @@ def step(state: ClothState, topo, params: SolverParams, *,
               contact_every=contact_every,
               contact_iterations=contact_iterations,
               contact_window=contact_window, self_collision=self_collision)
-    if isinstance(topo, GridTopology) and backend == "pallas":
-        if self_collision and substeps % contact_every:
-            raise ValueError("substeps must be divisible by contact_every")
-        out = _step_grid(state, topo, params, cheb=spring_mode != "jacobi",
-                         **kw)
-    elif isinstance(topo, GridTopology):
-        out = _step_grid_xla(state, topo, params, spring_mode=spring_mode,
-                             contact_mode=contact_mode,
+    with trace.span("solver.step"):
+        if isinstance(topo, GridTopology) and backend == "pallas":
+            if self_collision and substeps % contact_every:
+                raise ValueError("substeps must be divisible by contact_every")
+            out = _step_grid(state, topo, params, cheb=spring_mode != "jacobi",
+                             **kw)
+        elif isinstance(topo, GridTopology):
+            out = _step_grid_xla(state, topo, params, spring_mode=spring_mode,
+                                 contact_mode=contact_mode,
+                                 resort_interval=resort_interval, **kw)
+        elif isinstance(topo, LayeredGridTopology):
+            if self_collision and contact_mode != "sort":
+                raise ValueError("layered topology supports "
+                                 "contact_mode='sort' only (got "
+                                 f"{contact_mode!r})")
+            out = _step_layered(state, topo, params, spring_mode=spring_mode,
+                                backend=backend, **kw)
+        elif isinstance(topo, MeshTopology):
+            out = _step_mesh(state, topo, params, spring_mode=spring_mode,
+                             backend=backend, contact_mode=contact_mode,
                              resort_interval=resort_interval, **kw)
-    elif isinstance(topo, LayeredGridTopology):
-        if self_collision and contact_mode != "sort":
-            raise ValueError("layered topology supports contact_mode='sort' "
-                             f"only (got {contact_mode!r})")
-        out = _step_layered(state, topo, params, spring_mode=spring_mode,
-                            backend=backend, **kw)
-    elif isinstance(topo, MeshTopology):
-        out = _step_mesh(state, topo, params, spring_mode=spring_mode,
-                         backend=backend, contact_mode=contact_mode,
-                         resort_interval=resort_interval, **kw)
-    else:
-        raise TypeError(f"no solver step for {type(topo).__name__}")
-    return out.replace(time=state.time + f32(params.dt),
-                       step_count=state.step_count + 1)
+        else:
+            raise TypeError(f"no solver step for {type(topo).__name__}")
+        return out.replace(time=state.time + f32(params.dt),
+                           step_count=state.step_count + 1)
 
 
 def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
@@ -355,17 +364,19 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
     B, H, W = state.batch, topo.max_dimy, topo.max_dimx
     P = state.positions.view(B, 3, H, W)
     V = state.velocities.view(B, 3, H, W)
-    valid = lattice_valid(topo.dimx, topo.dimy, H, W)
-    w = torch.where(valid, state.inv_mass.view(B, H, W), 0.0).contiguous()
-    moving = valid & (w > 0)
-    dt_sub = np.float32(params.dt) / np.float32(substeps)
-    dv_max = np.float32(params.max_acceleration) * dt_sub
-    pvec = pack_sub_params(params, topo, state.picker_pos, PICKER_RADIUS,
-                           dt_sub)
-    R = float(np.float32(PICKER_RADIUS) + np.float32(
-        params.collision_distance))
-    flat_valid = valid.reshape(B, -1)
-    dt_t = _per_dt(dt_sub, P)
+    with trace.span("solver.prep"):
+        valid = lattice_valid(topo.dimx, topo.dimy, H, W)
+        w = torch.where(valid, state.inv_mass.view(B, H, W),
+                        0.0).contiguous()
+        moving = valid & (w > 0)
+        dt_sub = np.float32(params.dt) / np.float32(substeps)
+        dv_max = np.float32(params.max_acceleration) * dt_sub
+        pvec = pack_sub_params(params, topo, state.picker_pos,
+                               PICKER_RADIUS, dt_sub)
+        R = float(np.float32(PICKER_RADIUS) + np.float32(
+            params.collision_distance))
+        flat_valid = valid.reshape(B, -1)
+        dt_t = _per_dt(dt_sub, P)
 
     def contacts(P, V, prevL):
         # contacts -> plane -> velocity add under the speed-up-only clamp
@@ -375,32 +386,35 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
             flat_valid, params, rest_dist=params.radius, lattice_w=W,
             window=contact_window,
             iterations=contact_iterations).view(B, 3, H, W)
-        P2 = solve_plane(P2, prevL, params.collision_distance,
-                         params.dynamic_friction, moving)
-        P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
-        return solve_picker_spheres(P, state.picker_pos, R, moving), V
+        with trace.span("solver.contacts.apply"):
+            P2 = solve_plane(P2, prevL, params.collision_distance,
+                             params.dynamic_friction, moving)
+            P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
+            return solve_picker_spheres(P, state.picker_pos, R, moving), V
 
     if _aero_on(params):
-        g_dt = dt_sub * torch.tensor(params.gravity, dtype=torch.float32,
+        g_dt = dt_sub * trace.upload(params.gravity, dtype=torch.float32,
                                      device=P.device).view(1, 3, 1, 1)
         for s in range(substeps):
             kick = aero.aero_accel(V + g_dt, aero.grid_normals(P, valid),
                                    params, moving)
             V = V + dt_sub * kick
             contact_now = self_collision and (s + 1) % contact_every == 0
-            P, V, prevL = kernels.substeps(
-                pvec, P.contiguous(), V.contiguous(), w, n_sub=1,
-                iterations=iterations, cheb=cheb,
-                picker_last=not contact_now)
+            with trace.span("solver.substeps"):
+                P, V, prevL = kernels.substeps(
+                    pvec, P.contiguous(), V.contiguous(), w, n_sub=1,
+                    iterations=iterations, cheb=cheb,
+                    picker_last=not contact_now)
             if contact_now:
                 P, V = contacts(P, V, prevL)
     else:
         n_sub = contact_every if self_collision else substeps
         for _ in range(substeps // n_sub):
-            P, V, prevL = kernels.substeps(
-                pvec, P.contiguous(), V.contiguous(), w, n_sub=n_sub,
-                iterations=iterations, cheb=cheb,
-                picker_last=not self_collision)
+            with trace.span("solver.substeps"):
+                P, V, prevL = kernels.substeps(
+                    pvec, P.contiguous(), V.contiguous(), w, n_sub=n_sub,
+                    iterations=iterations, cheb=cheb,
+                    picker_last=not self_collision)
             if self_collision:
                 P, V = contacts(P, V, prevL)
     return state.replace(positions=P.reshape(B, 3, -1),
@@ -489,7 +503,7 @@ def _run_substeps(P, V, w, moving, params: SolverParams, picker_pos, *,
     dv_max = float(np.float32(params.max_acceleration) * dt)
     damp = float(max(np.float32(0.0), np.float32(1.0)
                      - np.float32(params.damping) * dt))
-    g_dt = dt * torch.tensor(params.gravity, dtype=torch.float32,
+    g_dt = dt * trace.upload(params.gravity, dtype=torch.float32,
                              device=P.device).view(
                                  (1, 3) + (1,) * (P.dim() - 2))
     rho2 = np.float32(params.chebyshev_rho) * np.float32(
