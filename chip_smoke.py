@@ -5,7 +5,7 @@
 
 Phases, each printed on its own line with its wall seconds:
   0  card name and power limit (nvidia-smi), torch and CUDA versions
-  1  build both CUDA kernels from csrc/ with nvcc (parallel); each
+  1  build the CUDA kernels from csrc/ with nvcc (parallel); each
      kernel's registers and spill bytes (fails on a spill), and the
      clusters of the substeps kernel the card runs at once
   2  each kernel against its plain PyTorch version on the card, at the
@@ -27,7 +27,9 @@ Phases, each printed on its own line with its wall seconds:
      task's dims on the 104 lattice, at the main path's knobs); the
      solver-stage profiler's launches (substeps_profile, contacts_profile:
      64 full 100x100 cloths, one substep of 30 iterations, contacts 8 x
-     window 16, the launches of phase 14 (a)); plus one
+     window 16, the launches of phase 14 (a)); the contact epilogue
+     kernel (contact_apply: 512 envs of 64-104 on the 104 lattice, the
+     physics cell's launch shape, bit-equal to its plain version); plus one
      aero frame of 4 of the grid kernels' compressed synthetic cloths on
      the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
@@ -184,7 +186,9 @@ PEAK_BYTES = 3.35e12
 TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
        "contacts.xyz": 2e-6, "substeps_aero.P": 1e-5,
        "substeps_aero.prev": 1e-5, "substeps_aero.V": 4e-3,
-       "contacts_mesh.xyz": 2e-6, "contacts_mesh_generic.xyz": 2e-6}
+       "contacts_mesh.xyz": 2e-6, "contacts_mesh_generic.xyz": 2e-6,
+       # the contact epilogue is straight-line arithmetic: bit-equal
+       "contact_apply.PV": 0.0}
 # the launches phase 2 adds hold to the bounds of their kind
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
@@ -333,6 +337,15 @@ def contacts_work(n_active, N, window, iterations, mesh=False):
     nbytes = (4 * B * N * (10 if mesh else 7) + 4 * B * 8
               + 4 * B * N * 3)
     return nbytes, ops
+
+
+def contact_apply_work(B, N):
+    """(bytes, f32 ops) of one contact_apply launch over all B x N slots.
+    Per slot: plane 17, velocity add under the clamp 37, two picker
+    spheres 38, the final add 3 = 95 ops.  Bytes: 84 a slot (reads: the 3
+    contact outputs, the 6 sorted positions, the packed id, the int64
+    order, V's 3 planes; writes: P and V) and the params."""
+    return 84 * B * N + 4 * B * 21, 95 * B * N
 
 
 def bound(nbytes, ops):
@@ -563,6 +576,7 @@ def phase_kernels(device):
         "contacts_profile", pout, pw, pvalid, pdims, err, window=16,
         iterations=8)
     del pP, pV, pw, pout
+    rows["contact_apply"] = kernel_contact_apply(device, err)
     rows.update(kernel_mesh(device, err))
     rows.update(kernel_mesh_generic(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
@@ -644,6 +658,41 @@ def kernel_contacts(name, out_sub, w, valid, dims, err, *, window,
     log_tiles(name, B, H * W, **kw)
     return dict(max_abs_err=err[f"{name}.xyz"], ms=ms_k, plain_ms=ms_p,
                 bound_ms=b_ms, bound_by=b_by, B=B), moved
+
+
+def kernel_contact_apply(device, err):
+    """The contact epilogue kernel at the physics cell's launch shape
+    (BENCH_ENVS envs of 64-104 on the 104 lattice, contacts 12 x 4)
+    against its plain version, on the sorted state a substeps launch and a
+    contacts launch left behind: max abs error of P and V into err,
+    CUDA-event times and the bound.  Returns the row."""
+    import torch
+
+    from flingbot_tpu_torch.engine import collisions, kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    params = SolverParams()
+    gen = torch.Generator().manual_seed(2)
+    B, H, W = BENCH_ENVS, 104, 104
+    _, pvec, P, V, w, valid, _ = synthetic_inputs(B, H, W, gen, device)
+    P, V, prev = kernels.substeps(pvec, P, V, w, n_sub=2, iterations=16,
+                                  picker_last=False)
+    order, srt, out = collisions.sort_and_project(
+        P.reshape(B, 3, -1), prev.reshape(B, 3, -1), w.reshape(B, -1),
+        valid.reshape(B, -1), params, rest_dist=params.radius, lattice_w=W,
+        window=12, iterations=4)
+    args = (pvec, order, srt, out, V.reshape(B, 3, -1))
+    got = kernels.contact_apply(*args)
+    want = kernels.contact_apply_plain(*args)
+    torch.cuda.synchronize()
+    err["contact_apply.PV"] = max(float((a - b).abs().max())
+                                  for a, b in zip(got, want))
+    assert all(torch.isfinite(a).all() for a in got)
+    ms_k = cuda_ms(lambda: kernels.contact_apply(*args), 20)
+    ms_p = cuda_ms(lambda: kernels.contact_apply_plain(*args), 5)
+    b_ms, b_by = bound(*contact_apply_work(B, H * W))
+    return dict(max_abs_err=err["contact_apply.PV"], ms=ms_k, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by, B=B)
 
 
 def log_tiles(name, B, N, window, iterations):
@@ -877,8 +926,8 @@ def phase_slice(device):
     torch.cuda.synchronize()
     log(f"  crumpled {SMOKE_ENVS} cloths in {time.perf_counter() - t0:.2f} s")
     frame_check(state, topo, params, "grid")
-    launches, env, vm = drive_path((state, topo), device, ("substeps",
-                                                          "contacts"))
+    launches, env, vm = drive_path((state, topo), device, (
+        "substeps", "contacts", "contact_apply"))
     return launches, (env, vm), (state, topo)
 
 
@@ -2081,7 +2130,11 @@ def main():
                           "flingbot_tpu/engine/solver.py:637"),
         # cheb=False: the plain Jacobi loop of _substeps_kernel
         "substeps_jacobi": ("flingbot_tpu_torch/csrc/substeps.cu",
-                            "flingbot_tpu/engine/pallas_kernels.py:229")}
+                            "flingbot_tpu/engine/pallas_kernels.py:229"),
+        # no TPU kernel: the JAX package leaves the grid path's contact
+        # epilogue to XLA
+        "contact_apply": ("flingbot_tpu_torch/csrc/contact_apply.cu",
+                          "none (XLA: flingbot_tpu/engine/solver.py:604-615)")}
     # the task generator's launches: 30 iterations, contacts 8 x window 16
     # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices;
     # the single env's (B = 1) on the 104 lattice; the profiler's
@@ -2095,7 +2148,8 @@ def main():
                  "substeps_jacobi", "substeps_gen", "contacts_gen",
                  "substeps_gen128", "contacts_gen128",
                  "contacts_mesh_generic", "substeps_single",
-                 "contacts_single", "substeps_profile", "contacts_profile"):
+                 "contacts_single", "substeps_profile", "contacts_profile",
+                 "contact_apply"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

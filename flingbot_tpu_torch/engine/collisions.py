@@ -11,6 +11,9 @@ returns the permutation and the inverse is one scatter through it.  On the
 pallas backend the projection is the contacts kernel
 (`kernels.contacts`); on the xla backend it is `kernels.contacts_plain`,
 the counterpart of the JAX package's XLA code `_contacts_sorted_flat`.
+The grid step of the pallas backend takes the group without its scatter
+(`sort_and_project`) and scatters in its epilogue kernel
+(`kernels.contact_apply`).
 
 The xla backend's other contact modes, plain PyTorch on every device:
   sweep  +-window pairs in a cached Morton order (solve_contacts_sweep)
@@ -117,6 +120,30 @@ def sort_particles(P, prev, w, active, *, rest_dist, lattice_w=None,
     return order, [torch.gather(a, 1, order).contiguous() for a in arrays]
 
 
+def sort_and_project(P, prev, w, active, params: SolverParams, *,
+                     rest_dist, lattice_w=None, rest_positions=None,
+                     window: int = 12, iterations: int = 4,
+                     backend: str = "pallas"):
+    """The sort and the projection of a contact group, left in sorted
+    order: (order (B, N), srt, (ox, oy, oz)), srt the sorted arrays of
+    sort_particles and (ox, oy, oz) the projected positions.  The
+    arguments are contact_group's.  The grid step hands the result to
+    kernels.contact_apply, which scatters it back in its epilogue."""
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    with trace.span("solver.contacts.sort"):
+        order, srt = sort_particles(P, prev, w, active, rest_dist=rest_dist,
+                                    lattice_w=lattice_w,
+                                    rest_positions=rest_positions)
+    with trace.span("solver.contacts.project"):
+        cp = contact_params(params, rest_dist, P.shape[0], P.device)
+        project = kernels.contacts if backend == "pallas" \
+            else kernels.contacts_plain
+        out = project(cp, *srt[:7], rests=srt[7:] or None, window=window,
+                      iterations=iterations)
+    return order, srt, out
+
+
 def contact_group(P, prev, w, active, params: SolverParams, *, rest_dist,
                   lattice_w=None, rest_positions=None, window: int = 12,
                   iterations: int = 4, backend: str = "pallas"):
@@ -131,21 +158,13 @@ def contact_group(P, prev, w, active, params: SolverParams, *, rest_dist,
     the same sort).  backend "pallas" projects with the contacts kernel,
     "xla" with its plain version on any device (contact_group(backend=
     "xla") -> _contacts_sorted_flat, collisions.py:399-402)."""
-    if backend not in ("pallas", "xla"):
-        raise ValueError(f"unknown backend {backend!r}")
-    with trace.span("solver.contacts.sort"):
-        order, srt = sort_particles(P, prev, w, active, rest_dist=rest_dist,
-                                    lattice_w=lattice_w,
-                                    rest_positions=rest_positions)
-    with trace.span("solver.contacts.project"):
-        cp = contact_params(params, rest_dist, P.shape[0], P.device)
-        project = kernels.contacts if backend == "pallas" \
-            else kernels.contacts_plain
-        ox, oy, oz = project(cp, *srt[:7], rests=srt[7:] or None,
-                             window=window, iterations=iterations)
+    order, _, projected = sort_and_project(
+        P, prev, w, active, params, rest_dist=rest_dist, lattice_w=lattice_w,
+        rest_positions=rest_positions, window=window, iterations=iterations,
+        backend=backend)
     with trace.span("solver.contacts.apply"):
         out = torch.empty_like(P)
-        for c, o in enumerate((ox, oy, oz)):
+        for c, o in enumerate(projected):
             out[:, c].scatter_(1, order, o)
     return out
 

@@ -1,11 +1,15 @@
-"""The port's two CUDA kernels: ctypes wrappers, launch counters, launch
+"""The port's CUDA kernels: ctypes wrappers, launch counters, launch
 geometry and plain PyTorch versions (counterpart of
 flingbot_tpu/engine/pallas_kernels.py).
 
-  substeps  csrc/substeps.cu  <- _substeps_kernel / pallas_substeps
-                                 (Chebyshev or plain Jacobi springs)
-  contacts  csrc/contacts.cu  <- _contacts_kernel / pallas_contacts
-                                 (grid mode, and mesh mode with rests=)
+  substeps       csrc/substeps.cu       <- _substeps_kernel / pallas_substeps
+                                           (Chebyshev or plain Jacobi springs)
+  contacts       csrc/contacts.cu       <- _contacts_kernel / pallas_contacts
+                                           (grid mode, and mesh mode with
+                                           rests=)
+  contact_apply  csrc/contact_apply.cu  <- no TPU kernel: the grid path's
+                                           contact epilogue, which the JAX
+                                           package leaves to XLA
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; it never falls back.  Each launch
@@ -24,7 +28,7 @@ import torch
 
 from flingbot_tpu_torch.engine import build as _build
 
-KERNELS = ("substeps", "contacts")
+KERNELS = ("substeps", "contacts", "contact_apply")
 LAUNCHES = {name: 0 for name in KERNELS + ("contacts_mesh",)}
 
 SUB_PARAM_LEN = 21
@@ -72,11 +76,13 @@ def build():
     p = ctypes.c_void_p
     i = ctypes.c_int
     sub, con = libs["substeps"], libs["contacts"]
+    app = libs["contact_apply"]
     sub.flingbot_substeps.argtypes = [p] * 7 + [i] * 9 + [p]
     sub.flingbot_substeps_max_clusters.argtypes = [i, p]
     con.flingbot_contacts.argtypes = [p] * 14 + [i] * 8 + [p]
+    app.flingbot_contact_apply.argtypes = [p] * 15 + [i] * 2 + [p]
     for fn in (sub.flingbot_substeps, sub.flingbot_substeps_max_clusters,
-               con.flingbot_contacts):
+               con.flingbot_contacts, app.flingbot_contact_apply):
         fn.restype = i
     for lib in libs.values():
         lib.flingbot_error_string.argtypes = [i]
@@ -366,3 +372,78 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
             mu_plane * torch.clamp(pen, min=0.0) / t_norm, max=1.0)
         X, Y, Z = X - dx_ * f, Y + contact_f * pen, Z - dz_ * f
     return X, Y, Z
+
+
+# --------------------------------------------------------------------------
+# kernel 3: the grid path's contact epilogue
+# --------------------------------------------------------------------------
+
+def contact_apply(pvec, order, srt, out, V):
+    """The contact group's epilogue on the grid path (the contacts
+    closure of _step_grid_pallas, flingbot_tpu/engine/solver.py:600-615):
+    scatter the contacts kernel's output back to slot order, then the
+    ground plane, the velocity add under the speed-up-only clamp and the
+    picker spheres.
+
+    pvec (B, 21) f32, the substeps kernel's parameters (dt_sub, friction,
+    collision distance, picker radius, the two pickers, max acceleration);
+    order (B, N) i64 and srt, the 7 sorted arrays of
+    collisions.sort_particles in grid mode (pre-contact positions, the
+    substep's previous positions, the packed ids); out = (ox, oy, oz), the
+    contacts kernel's output in sorted order; V (B, 3, N) f32 in slot
+    order.  Returns (P', V'), (B, 3, N) each."""
+    if V.device.type == "cpu":
+        return contact_apply_plain(pvec, order, srt, out, V)
+    B, N = order.shape
+    _check(pvec, "pvec", (B, SUB_PARAM_LEN))
+    _check(order, "order", (B, N), torch.int64)
+    if len(srt) != 7 or len(out) != 3:
+        raise ValueError("expected the 7 sorted arrays of the grid mode and "
+                         "the 3 planes of the contacts kernel's output")
+    for name, a in zip(("xs", "ys", "zs", "pxs", "pys", "pzs", "ox", "oy",
+                        "oz"), list(srt[:6]) + list(out)):
+        _check(a, name, (B, N))
+    _check(srt[6], "packed", (B, N), torch.int32)
+    _check(V, "V", (B, 3, N))
+    lib = build()["contact_apply"]
+    P_out = torch.empty_like(V)
+    V_out = torch.empty_like(V)
+    _launch(lib, lib.flingbot_contact_apply, [
+        pvec.data_ptr(), order.data_ptr()]
+        + [a.data_ptr() for a in list(srt) + list(out)]
+        + [V.data_ptr(), P_out.data_ptr(), V_out.data_ptr(), B, N], V.device)
+    LAUNCHES["contact_apply"] += 1
+    return P_out, V_out
+
+
+def contact_apply_plain(pvec, order, srt, out, V):
+    """Plain PyTorch version of `contact_apply`: the scatter back through
+    `order`, then solver.solve_plane, add_delta_clamped and
+    solve_picker_spheres.  Moving slots are those whose packed id has
+    neither the immobile nor the inactive bit.  pvec's scalar columns are
+    the same in every row (pack_sub_params); dv_max is taken from row 0 as
+    a host float, as the grid step always passed it: PyTorch divides a
+    host float by a tensor through the tensor's reciprocal
+    (Tensor.__rdiv__), which rounds unlike a division by a tensor."""
+    from flingbot_tpu_torch.engine import solver as S
+
+    B, N = order.shape
+
+    def back(arrays):  # sorted order -> slot order, (B, len(arrays), N)
+        res = torch.empty((B, len(arrays), N), dtype=arrays[0].dtype,
+                          device=order.device)
+        for c, a in enumerate(arrays):
+            res[:, c].scatter_(1, order, a)
+        return res
+
+    P2, P, prev = back(out), back(srt[:3]), back(srt[3:6])
+    packed = back(srt[6:])[:, 0]
+    moving = (((packed >> PACK_IMMOBILE_BIT) & 1) == 0) & (
+        ((packed >> PACK_INACTIVE_BIT) & 1) == 0)
+    col = lambda k: pvec[:, k].view(B, 1)  # noqa: E731
+    P2 = S.solve_plane(P2, prev, col(4), col(3), moving)
+    dv_max = float(pvec[0, 20] * pvec[0, 0])
+    P, V = S.add_delta_clamped(P, P2, V, col(0).view(B, 1, 1), dv_max,
+                               moving)
+    return S.solve_picker_spheres(P, pvec[:, 14:20].reshape(B, 2, 3),
+                                  col(12), moving), V

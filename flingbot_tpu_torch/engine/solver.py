@@ -3,17 +3,18 @@ cloths, layered-lattice shirts and generic meshes, on the pallas backend
 (the port's CUDA kernels) or the xla backend (plain PyTorch).
 
 Grid cloths, pallas backend: plain PyTorch functions on batched lattices,
-P (B, 3, H, W).  The hot loop runs in the two CUDA kernels of
+P (B, 3, H, W).  The hot loop runs in the CUDA kernels of
 engine/kernels.py; the functions here are the pieces of their plain
 versions and the glue between launches.  One frame = `substeps` substeps
 in groups of `contact_every`.  A group is one `kernels.substeps` launch
 (integrate -> springs + plane iterations -> speed-up-only velocity clamp
 -> picker push, the last picker push deferred), then one contact group:
-contacts -> plane -> velocity add under the same clamp -> picker push (the
-pallas ordering of _step_grid_pallas, solver.py:571-660).  Without
-self-collision, one launch of all substeps.  With drag or lift set, one
-launch per substep with the aero kick between launches
-(solver.py:617-644).
+the Morton sort, the contacts kernel, and one `kernels.contact_apply`
+launch (scatter back -> plane -> velocity add under the same clamp ->
+picker push; the pallas ordering of _step_grid_pallas,
+solver.py:571-660).  Without self-collision, one launch of all substeps.
+With drag or lift set, one launch per substep with the aero kick between
+launches (solver.py:617-644).
 
 Every other step is the substep loop of _run_substeps / _substep
 (solver.py:395-491) in plain PyTorch: gravity -> aero -> damping ->
@@ -37,9 +38,11 @@ layered shirts for "gs" too (solver.py:737, 800, 878).
 
 Spans (utils/trace.py, recorded while tracing is on): every step is one
 solver.step; inside it the grid step on the pallas backend records
-solver.prep, solver.substeps (each launch) and solver.contacts.apply,
-and the contact group solver.contacts.sort, .project and .apply.  Each
-per-frame upload of a constant is a counted solver.sync (trace.upload).
+solver.prep, solver.substeps (each launch), and per contact group
+solver.contacts.sort, .project and .apply (the contact_apply launch);
+the other paths' contact groups record the same three, .apply around
+the scatter back.  Each per-frame upload of a constant is a counted
+solver.sync (trace.upload).
 """
 
 from __future__ import annotations
@@ -239,7 +242,7 @@ def _per_dt(dt, like: torch.Tensor):
 def add_delta_clamped(P, P2, V, dt, dv_max, moving):
     """Apply a projection P -> P2 with its velocity contribution under the
     speed-up-only clamp (_add_delta_clamped, solver.py:454).  dt: a float
-    or a 0-dim tensor (see _per_dt)."""
+    or a tensor that broadcasts against P (see _per_dt)."""
     dv = (P2 - P) / dt
     V_new = V + dv
     dv_norm = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
@@ -355,8 +358,9 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
     """The grid step of _step_grid_pallas (solver.py:562-660).  Without
     aero: one fused `kernels.substeps` launch per group of `contact_every`
     substeps, the group's last picker push deferred past its contact
-    group; without self-collision, one launch of all substeps with its
-    last picker push (solver.py:646-657).  With drag or lift set
+    group, whose epilogue is one `kernels.contact_apply` launch; without
+    self-collision, one launch of all substeps with its last picker push
+    (solver.py:646-657).  With drag or lift set
     (solver.py:617-644): one launch per substep, the aero kick on the
     post-gravity velocity applied between launches (the kernel integrates
     gravity and damping itself), and a contact group after every
@@ -370,27 +374,22 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
                         0.0).contiguous()
         moving = valid & (w > 0)
         dt_sub = np.float32(params.dt) / np.float32(substeps)
-        dv_max = np.float32(params.max_acceleration) * dt_sub
         pvec = pack_sub_params(params, topo, state.picker_pos,
                                PICKER_RADIUS, dt_sub)
-        R = float(np.float32(PICKER_RADIUS) + np.float32(
-            params.collision_distance))
         flat_valid = valid.reshape(B, -1)
-        dt_t = _per_dt(dt_sub, P)
 
     def contacts(P, V, prevL):
-        # contacts -> plane -> velocity add under the speed-up-only clamp
-        # -> picker push (the kernel already clamped the spring phase)
-        P2 = collisions.contact_group(
+        # contacts -> (one epilogue kernel) scatter back, plane, velocity
+        # add under the speed-up-only clamp, picker push (the substeps
+        # kernel already clamped the spring phase)
+        order, srt, out = collisions.sort_and_project(
             P.reshape(B, 3, -1), prevL.reshape(B, 3, -1), w.reshape(B, -1),
             flat_valid, params, rest_dist=params.radius, lattice_w=W,
-            window=contact_window,
-            iterations=contact_iterations).view(B, 3, H, W)
+            window=contact_window, iterations=contact_iterations)
         with trace.span("solver.contacts.apply"):
-            P2 = solve_plane(P2, prevL, params.collision_distance,
-                             params.dynamic_friction, moving)
-            P, V = add_delta_clamped(P, P2, V, dt_t, float(dv_max), moving)
-            return solve_picker_spheres(P, state.picker_pos, R, moving), V
+            P, V = kernels.contact_apply(pvec, order, srt, out,
+                                         V.reshape(B, 3, -1))
+            return P.view(B, 3, H, W), V.view(B, 3, H, W)
 
     if _aero_on(params):
         g_dt = dt_sub * trace.upload(params.gravity, dtype=torch.float32,

@@ -77,7 +77,7 @@ def profile_solver_stages(num_envs: int = 64, dim: int = 100,
     package (tasks.SEQ_SIM_KW: 4 substeps x 30 Gauss-Seidel iterations,
     block contacts 8 x 16 every substep).  The state is kept in lattice
     order, so the JAX profiler's gather_to_lattice has no counterpart;
-    `full step [pallas]` launches both CUDA kernels."""
+    `full step [pallas]` launches the grid path's three CUDA kernels."""
     from flingbot_tpu_torch.engine import collisions, solver
     from flingbot_tpu_torch.engine.state import ClothState, SolverParams
     from flingbot_tpu_torch.engine.topology import (

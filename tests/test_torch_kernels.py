@@ -1,5 +1,7 @@
-"""The port's two kernel modules held against the Pallas kernels (the
-contacts kernel in grid and in mesh mode).
+"""The port's kernel modules: the two that have Pallas counterparts held
+against the Pallas kernels (the contacts kernel in grid and in mesh mode),
+and the grid path's contact epilogue (contact_apply) held against the
+chain of solver functions it replaced.
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
 the Pallas kernels in interpret mode, as tests/test_pallas.py does.  The
@@ -15,10 +17,13 @@ import pytest
 import torch
 
 from flingbot_tpu_torch.engine import collisions, kernels
-from flingbot_tpu_torch.engine.solver import pack_sub_params, step
-from flingbot_tpu_torch.engine.state import SolverParams
+from flingbot_tpu_torch.engine.picker import DEFAULT_PICKER_RADIUS
+from flingbot_tpu_torch.engine.solver import (
+    add_delta_clamped, pack_sub_params, solve_picker_spheres, solve_plane,
+    step)
+from flingbot_tpu_torch.engine.state import ClothState, SolverParams
 from flingbot_tpu_torch.engine.topology import (
-    build_grid_topology, grid_positions)
+    build_grid_topology, grid_positions, lattice_valid)
 
 try:  # the JAX package, for the tests against it
     import jax.numpy as jnp
@@ -339,6 +344,118 @@ def _obj_shirt_contact_inputs():
     return cp, srt[:7], srt[7:]
 
 
+# the contact epilogue's batches: an inactive tail (dimx < DIM) first, then
+# a full cloth and another tail
+APPLY_DIMS = ((12, 14), (16, 16), (9, 16))
+APPLY_DT = np.float32(0.01) / np.float32(4)  # dt_sub at the default knobs
+
+
+def _apply_batch(B, seed=0):
+    """B envs of APPLY_DIMS on the DIM lattice in lattice order, built so
+    that every branch of the contact epilogue fires: heights from 0 to
+    2 cm around the collision distance, grasped slots (w = 0), contact
+    outputs that push some particles below the plane and others fast
+    enough for the speed-up clamp (pushes from 1e-6 to 3e-3 m at dt_sub
+    2.5 ms: |dv| up to 1.2 m/s against dv_max 0.25), and both picker
+    spheres inside env 0's cloth (picker 1 parked in the others).  Returns
+    (topo, P, prev, V, w, valid, contact output, picker_pos) on the CPU,
+    per-slot arrays (B, N)."""
+    rng = np.random.default_rng(seed)
+    N = DIM * DIM
+    dims = APPLY_DIMS[:B]
+    topo = build_grid_topology([d[0] for d in dims], [d[1] for d in dims],
+                               max_dimx=DIM, max_dimy=DIM, device="cpu")
+    valid = lattice_valid(topo.dimx, topo.dimy, DIM, DIM).reshape(B, N)
+    P = np.repeat(grid_positions(DIM, DIM).T[None], B, 0)
+    P[:, 1] = rng.uniform(0.0, 0.02, (B, N))
+    prev = P + rng.normal(0, 1e-3, P.shape)
+    V = rng.normal(0, 0.05, P.shape)
+    w = np.where(valid.numpy(), DIM * DIM / 0.5, 0.0)
+    w[:, [0, 37, 100]] = 0.0  # grasped
+    moving = valid.numpy() & (w > 0)
+    push = rng.normal(0, 1, P.shape) * 10 ** rng.uniform(-6, -2.5, P.shape)
+    out = np.where(moving[:, None], P + push, P)
+    picker = np.full((B, 2, 3), -10.0)
+    picker[:, 0] = P[:, :, 5 * DIM + 5] + [0.0, 0.01, 0.0]
+    picker[0, 1] = P[0, :, 7 * DIM + 8] + [0.0, 0.005, 0.0]
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return topo, t(P), t(prev), t(V), t(w), valid, t(out), t(picker)
+
+
+# the default solver constants (dv_max = 0.25, a power of two, scales
+# exactly), and a max acceleration whose dv_max does not, so that the
+# reciprocal-then-product of a host float over a tensor shows
+APPLY_PARAMS = (SolverParams(), SolverParams(max_acceleration=37.0,
+                                             dynamic_friction=0.3))
+
+
+def _apply_inputs(batch, seed=0, params=APPLY_PARAMS[0]):
+    """contact_apply's arguments from a lattice-order batch: a seeded
+    permutation stands in for the Morton order, the sorted arrays and the
+    contact output are gathered through it."""
+    topo, P, prev, V, w, valid, out, picker = batch
+    B, _, N = P.shape
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.argsort(torch.rand(B, N, generator=gen), dim=1)
+    packed = collisions.pack_lattice_ids(N, DIM, valid, w <= 0)
+    gather = lambda a: torch.gather(a, 1, order).contiguous()  # noqa: E731
+    srt = [gather(P[:, c]) for c in range(3)] + [
+        gather(prev[:, c]) for c in range(3)] + [gather(packed)]
+    pvec = pack_sub_params(params, topo, picker, DEFAULT_PICKER_RADIUS,
+                           APPLY_DT)
+    return pvec, order, srt, tuple(gather(out[:, c]) for c in range(3)), V
+
+
+def _old_apply_chain(order, out, P, prev, V, moving, picker, params):
+    """The grid step's contact epilogue as it was written inline: the
+    scatter back, then plane, clamped velocity add and picker spheres with
+    host floats and a 0-dim dt, as solver._step_grid called them."""
+    P2 = torch.empty_like(P)
+    for c, o in enumerate(out):
+        P2[:, c].scatter_(1, order, o)
+    P2 = solve_plane(P2, prev, params.collision_distance,
+                     params.dynamic_friction, moving)
+    dv_max = np.float32(params.max_acceleration) * APPLY_DT
+    R = float(np.float32(DEFAULT_PICKER_RADIUS)
+              + np.float32(params.collision_distance))
+    P, V = add_delta_clamped(P, P2, V, torch.tensor(APPLY_DT), float(dv_max),
+                             moving)
+    return solve_picker_spheres(P, picker, R, moving), V
+
+
+@pytest.mark.parametrize("B,seed,params", [
+    (1, 0, APPLY_PARAMS[0]), (3, 1, APPLY_PARAMS[0]),
+    (3, 2, APPLY_PARAMS[1])])
+def test_contact_apply_plain_is_the_old_chain(B, seed, params):
+    batch = _apply_batch(B, seed)
+    _, P, prev, V, w, valid, out, picker = batch
+    moving = valid & (w > 0)
+    args = _apply_inputs(batch, seed, params)
+    # every branch fires: the plane, the clamp on and off, both spheres
+    cd = np.float32(params.collision_distance)
+    assert ((out[:, 1] < cd) & moving).any()
+    assert ((out[:, 1] > cd) & moving).any()
+    dv = (out - P) / float(APPLY_DT)
+    dv_norm = dv.norm(dim=1)
+    speeding = (V + dv).norm(dim=1) > V.norm(dim=1)
+    dv_max = params.max_acceleration * float(APPLY_DT)
+    assert (speeding & (dv_norm > dv_max) & moving).any()
+    assert (speeding & (dv_norm < dv_max) & moving).any()
+    assert (~speeding & moving).any()
+    for k in range(2):
+        near = (out - picker[:, k, :, None]).norm(dim=1) < 0.025
+        assert (near[0] & moving[0]).any()
+    assert ((w == 0) & valid).any() and (~valid).any()
+    want_P, want_V = _old_apply_chain(args[1], args[3], P, prev, V, moving,
+                                      picker, params)
+    got_P, got_V = kernels.contact_apply_plain(*args)
+    assert torch.equal(got_P, want_P) and torch.equal(got_V, want_V)
+    before = dict(kernels.LAUNCHES)
+    wrap_P, wrap_V = kernels.contact_apply(*args)
+    assert kernels.LAUNCHES == before  # the plain version on the CPU
+    assert torch.equal(wrap_P, want_P) and torch.equal(wrap_V, want_V)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -442,3 +559,50 @@ def test_cuda_contact_tiles_match_plain(cuda_device, mode, window,
     op = kernels.contacts_plain(cp, *srt, rests, **kw)
     for a, b in zip(ok, op):
         assert float((a - b).abs().max()) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seed,params", [
+    (1, 0, APPLY_PARAMS[0]), (3, 1, APPLY_PARAMS[0]),
+    (3, 2, APPLY_PARAMS[1])])
+def test_cuda_contact_apply_matches_plain(cuda_device, B, seed, params):
+    """csrc/contact_apply.cu against contact_apply_plain on the card, on
+    the batch whose every branch fires: bit-equal under -fmad=false."""
+    args = _apply_inputs(_apply_batch(B, seed), seed, params)
+    pvec, order, srt, out, V = args
+    to = lambda arrs: [a.to(cuda_device) for a in arrs]  # noqa: E731
+    args = (pvec.to(cuda_device), order.to(cuda_device), to(srt), to(out),
+            V.to(cuda_device))
+    before = kernels.LAUNCHES["contact_apply"]
+    got = kernels.contact_apply(*args)
+    assert kernels.LAUNCHES["contact_apply"] == before + 1
+    want = kernels.contact_apply_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_frame_with_the_apply_kernel_is_the_plain_frame(
+        cuda_device, monkeypatch):
+    """One solver.step grid frame on the card (production knobs, both
+    pickers in env 0's cloth) launches contact_apply once a contact group,
+    and equals the same frame with the plain epilogue bit for bit."""
+    _, P, _, V, w, valid, _, picker = _apply_batch(3)
+    topo = build_grid_topology([d[0] for d in APPLY_DIMS],
+                               [d[1] for d in APPLY_DIMS], max_dimx=DIM,
+                               max_dimy=DIM, device=cuda_device)
+    t = lambda a: a.to(cuda_device)  # noqa: E731
+    state = ClothState(
+        positions=t(P), velocities=t(V), inv_mass=t(w), rest_inv_mass=t(w),
+        active=t(valid), picker_pos=t(picker),
+        picked_idx=torch.full((3, 2), -1, dtype=torch.int64,
+                              device=cuda_device))
+    before = kernels.LAUNCHES["contact_apply"]
+    got = step(state, topo, SolverParams())
+    assert kernels.LAUNCHES["contact_apply"] == before + 2
+    monkeypatch.setattr(kernels, "contact_apply",
+                        kernels.contact_apply_plain)
+    want = step(state, topo, SolverParams())
+    assert kernels.LAUNCHES["contact_apply"] == before + 2
+    assert torch.equal(got.positions, want.positions)
+    assert torch.equal(got.velocities, want.velocities)

@@ -21,12 +21,11 @@ from flingbot_tpu_torch.utils import trace
 
 DIM = 16
 DIMS = ((16, 16), (12, 14))  # (dimx, dimy) of each env
-SYNCS_PER_FRAME = 9  # 3 in the frame's set-up, 3 in each contact group
+SYNCS_PER_FRAME = 8  # 2 in the frame's set-up, 3 in each contact group
 STAGES = ("solver.prep", "solver.substeps", "solver.contacts.sort",
           "solver.contacts.project", "solver.contacts.apply",
-          "solver.contacts.apply", "solver.substeps", "solver.contacts.sort",
-          "solver.contacts.project", "solver.contacts.apply",
-          "solver.contacts.apply")
+          "solver.substeps", "solver.contacts.sort",
+          "solver.contacts.project", "solver.contacts.apply")
 
 
 def _batch(device, seed=0):
@@ -112,12 +111,14 @@ def test_a_grid_frame_records_its_stages_under_one_root(tracing):
             if s[0] == "solver.sync":
                 parent_name = by_id[s[2]][0]
                 syncs[parent_name] = syncs.get(parent_name, 0) + 1
-        assert syncs == {"solver.prep": 3, "solver.contacts.sort": 4,
+        assert syncs == {"solver.prep": 2, "solver.contacts.sort": 4,
                          "solver.contacts.project": 2}
     assert len(spans) == 2 * (1 + len(STAGES) + SYNCS_PER_FRAME)
 
 
 def test_host_syncs_rise_by_nine_a_frame_at_the_production_knobs():
+    # the name is older than the count: a grid frame's dt upload went
+    # with the contact epilogue kernel, and SYNCS_PER_FRAME is now 8
     state, topo = _batch("cpu")
     trace.drain()
     for frames in (1, 2):
@@ -126,7 +127,7 @@ def test_host_syncs_rise_by_nine_a_frame_at_the_production_knobs():
         _, counts = trace.drain()
         assert counts["host_syncs"] == SYNCS_PER_FRAME * frames
         assert set(counts["launches"]) == {"substeps", "contacts",
-                                           "contacts_mesh"}
+                                           "contacts_mesh", "contact_apply"}
 
 
 def test_a_span_whose_block_raises_still_closes(tracing):
