@@ -29,7 +29,10 @@ Phases, each printed on its own line with its wall seconds:
      64 full 100x100 cloths, one substep of 30 iterations, contacts 8 x
      window 16, the launches of phase 14 (a)); the contact epilogue
      kernel (contact_apply: 512 envs of 64-104 on the 104 lattice, the
-     physics cell's launch shape, bit-equal to its plain version); plus one
+     physics cell's launch shape, bit-equal to its plain version); the
+     contact sort's two kernels at that shape (contact_keys,
+     contact_gather) and the gather's mesh mode on the 16 OBJ shirts
+     (contact_gather_mesh), each bit-equal to its plain version; plus one
      aero frame of 4 of the grid kernels' compressed synthetic cloths on
      the card against the plain path on the CPU
   3  the port's bench (flingbot_tpu_torch.bench) at the root bench.py's
@@ -188,7 +191,11 @@ TOL = {"substeps.P": 1e-5, "substeps.prev": 1e-5, "substeps.V": 4e-3,
        "substeps_aero.prev": 1e-5, "substeps_aero.V": 4e-3,
        "contacts_mesh.xyz": 2e-6, "contacts_mesh_generic.xyz": 2e-6,
        # the contact epilogue is straight-line arithmetic: bit-equal
-       "contact_apply.PV": 0.0}
+       "contact_apply.PV": 0.0,
+       # the sort's keys and gathers: integer operations, one IEEE
+       # division and copies, bit-equal
+       "contact_keys.keys": 0.0, "contact_gather.srt": 0.0,
+       "contact_keys_mesh.keys": 0.0, "contact_gather_mesh.srt": 0.0}
 # the launches phase 2 adds hold to the bounds of their kind
 for _kind in ("substeps_jacobi", "substeps_nocontact"):
     TOL.update({f"{_kind}.{k}": TOL[f"substeps.{k}"]
@@ -348,6 +355,25 @@ def contact_apply_work(B, N):
     return 84 * B * N + 4 * B * 21, 95 * B * N
 
 
+def contact_keys_work(B, N):
+    """(bytes, ops) of one contact_keys launch over all B x N slots.  Per
+    slot: for each of 3 axes a division, a floor, the cast, the + 512, a
+    two-sided clamp (6) and _part1by2 (13); two shifts, two ors and the
+    select on active (5) = 62 ops.  Bytes: 17 a slot (P's 3 planes and
+    active read, the key written)."""
+    return 17 * B * N, 62 * B * N
+
+
+def contact_gather_work(B, N, mesh=False):
+    """(bytes, ops) of one contact_gather launch over all B x N slots.  Per
+    slot: the slot's env and offsets (5), the packed id (lattice x and y,
+    two flags: 8; mesh mode 4) = 13 ops (9 in mesh mode).  Bytes: 65 a
+    slot (reads: the int64 order, 6 gathered coordinates of P and prev, w,
+    active; writes: 6 coordinates and the packed id); mesh mode 89 (3 rest
+    coordinates gathered and written)."""
+    return (89 if mesh else 65) * B * N, (9 if mesh else 13) * B * N
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
@@ -414,7 +440,7 @@ def phase_build(device):
 
     t0 = time.perf_counter()
     kernels.build()
-    log(f"built {list(kernels.KERNELS)} in {time.perf_counter() - t0:.2f} s "
+    log(f"built {list(kernels.SOURCES)} in {time.perf_counter() - t0:.2f} s "
         f"into {build.build_dir()}")
     spills = 0
     for name, text in build.build_logs.items():
@@ -577,6 +603,7 @@ def phase_kernels(device):
         iterations=8)
     del pP, pV, pw, pout
     rows["contact_apply"] = kernel_contact_apply(device, err)
+    rows.update(kernel_contact_sort(device, err))
     rows.update(kernel_mesh(device, err))
     rows.update(kernel_mesh_generic(device, err))
     # the aero path's frame on these compressed cloths, card against CPU
@@ -693,6 +720,89 @@ def kernel_contact_apply(device, err):
     b_ms, b_by = bound(*contact_apply_work(B, H * W))
     return dict(max_abs_err=err["contact_apply.PV"], ms=ms_k, plain_ms=ms_p,
                 bound_ms=b_ms, bound_by=b_by, B=B)
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def sort_rows(name, P, prev, w, active, err, **kw):
+    """The contact sort's kernels against their plain versions on one
+    contact group's inputs: max abs error of the keys into
+    err[keys_name.keys] and of the sorted arrays (gathered through the
+    kernel keys' order) into err[name.srt], CUDA-event times and the
+    bounds.  kw: lattice_w (grid mode) or rest_positions (mesh mode).
+    Returns the rows (contact_keys, contact_gather) of these inputs."""
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    rd = SolverParams().radius
+    # the kernels read contiguous arrays, as sort_particles passes them
+    P, prev, w, active = (a.contiguous() for a in (P, prev, w, active))
+    kw = {k: v.contiguous() if torch.is_tensor(v) else v
+          for k, v in kw.items()}
+    B, _, N = P.shape
+    mesh = "rest_positions" in kw
+    keys_name = "contact_keys_mesh" if mesh else "contact_keys"
+    keys = kernels.contact_keys(P, active, rd)
+    err[f"{keys_name}.keys"] = max_abs(
+        keys, kernels.contact_keys_plain(P, active, rd))
+    _, order = torch.sort(keys, dim=1, stable=True)
+    got = kernels.contact_gather(order, P, prev, w, active, **kw)
+    want = kernels.contact_gather_plain(order, P, prev, w, active, **kw)
+    torch.cuda.synchronize()
+    err[f"{name}.srt"] = max(max_abs(a, b) for a, b in zip(got, want))
+    rows = {}
+    for row, fn, plain, work, e in (
+            (keys_name, lambda: kernels.contact_keys(P, active, rd),
+             lambda: kernels.contact_keys_plain(P, active, rd),
+             contact_keys_work(B, N), err[f"{keys_name}.keys"]),
+            (name, lambda: kernels.contact_gather(order, P, prev, w, active,
+                                                  **kw),
+             lambda: kernels.contact_gather_plain(order, P, prev, w, active,
+                                                  **kw),
+             contact_gather_work(B, N, mesh), err[f"{name}.srt"])):
+        b_ms, b_by = bound(*work)
+        rows[row] = dict(max_abs_err=e, ms=cuda_ms(fn, 20),
+                         plain_ms=cuda_ms(plain, 5), bound_ms=b_ms,
+                         bound_by=b_by, B=B)
+    return rows
+
+
+def kernel_contact_sort(device, err):
+    """The contact sort's two kernels at the physics cell's launch shape
+    (BENCH_ENVS envs of 64-104 on the 104 lattice, grid mode, on the state
+    a substeps launch left behind) and the gather's mesh mode on the 16
+    OBJ shirts after one layered frame, each against its plain version.
+    Returns the rows contact_keys, contact_gather and
+    contact_gather_mesh."""
+    import torch
+
+    from flingbot_tpu_torch.engine import kernels
+    from flingbot_tpu_torch.engine.solver import step
+    from flingbot_tpu_torch.engine.state import SolverParams
+
+    gen = torch.Generator().manual_seed(3)
+    B, H, W = BENCH_ENVS, 104, 104
+    _, pvec, P, V, w, valid, _ = synthetic_inputs(B, H, W, gen, device)
+    P, _, prev = kernels.substeps(pvec, P, V, w, n_sub=2, iterations=16,
+                                  picker_last=False)
+    rows = sort_rows("contact_gather", P.reshape(B, 3, -1),
+                     prev.reshape(B, 3, -1), w.reshape(B, -1),
+                     valid.reshape(B, -1), err, lattice_w=W)
+    del P, V, prev, w, valid
+    topo, state = shirt_batch(device)
+    moved = step(state, topo, SolverParams(), **SOLVER)
+    w = torch.where(state.active, state.inv_mass, 0.0)
+    mesh = sort_rows("contact_gather_mesh", moved.positions, state.positions,
+                     w, state.active, err,
+                     rest_positions=topo.rest_positions)
+    rows["contact_gather_mesh"] = mesh["contact_gather_mesh"]
+    log(f"  contact_keys on the shirts: {mesh['contact_keys_mesh']['ms']:.4f}"
+        f" ms (plain {mesh['contact_keys_mesh']['plain_ms']:.3f} ms)")
+    return rows
 
 
 def log_tiles(name, B, N, window, iterations):
@@ -927,7 +1037,8 @@ def phase_slice(device):
     log(f"  crumpled {SMOKE_ENVS} cloths in {time.perf_counter() - t0:.2f} s")
     frame_check(state, topo, params, "grid")
     launches, env, vm = drive_path((state, topo), device, (
-        "substeps", "contacts", "contact_apply"))
+        "substeps", "contacts", "contact_apply", "contact_keys",
+        "contact_gather"))
     return launches, (env, vm), (state, topo)
 
 
@@ -1028,8 +1139,8 @@ def phase_shirts(device):
         f"{len(spec.offsets)} spring classes")
     env_kw = dict(get_task_fn=loader.get_next_task, num_envs=len(loader),
                   **buckets)
-    launches, env, _ = drive_path((), device, ("contacts_mesh",),
-                                  steps=16, **env_kw)
+    launches, env, _ = drive_path((), device, (
+        "contacts_mesh", "contact_gather_mesh"), steps=16, **env_kw)
     params = SolverParams()
     # one frame of 4 of these shirts from their file states on the card
     # against the CPU: dense contacts in the crumpled file states make
@@ -2081,7 +2192,9 @@ def main():
     with Phase("5 profile"):
         phase_profile(env, vm)
     with Phase("6 shirt path"):
-        launches["contacts_mesh"] = phase_shirts(device)["contacts_mesh"]
+        shirt = phase_shirts(device)
+    for name in ("contacts_mesh", "contact_gather_mesh"):
+        launches[name] = shirt[name]
     with Phase("7 aero path"):
         launches["substeps_aero"] = phase_aero(state, topo,
                                                device)["substeps"]
@@ -2134,7 +2247,16 @@ def main():
         # no TPU kernel: the JAX package leaves the grid path's contact
         # epilogue to XLA
         "contact_apply": ("flingbot_tpu_torch/csrc/contact_apply.cu",
-                          "none (XLA: flingbot_tpu/engine/solver.py:604-615)")}
+                          "none (XLA: flingbot_tpu/engine/solver.py:604-615)"),
+        # no TPU kernel: the JAX package sorts with XLA's multi-operand
+        # jax.lax.sort, its keys and packed ids elementwise
+        "contact_keys": ("flingbot_tpu_torch/csrc/contact_sort.cu",
+                         "none (XLA: flingbot_tpu/engine/collisions.py:"
+                         "336-341)"),
+        "contact_gather": ("flingbot_tpu_torch/csrc/contact_sort.cu",
+                           "none (XLA: flingbot_tpu/engine/collisions.py:"
+                           "342-364)")}
+    sources["contact_gather_mesh"] = sources["contact_gather"]
     # the task generator's launches: 30 iterations, contacts 8 x window 16
     # (flingbot_tpu/env/tasks.py:729-731), on the 104 and 128 lattices;
     # the single env's (B = 1) on the 104 lattice; the profiler's
@@ -2149,7 +2271,8 @@ def main():
                  "substeps_gen128", "contacts_gen128",
                  "contacts_mesh_generic", "substeps_single",
                  "contacts_single", "substeps_profile", "contacts_profile",
-                 "contact_apply"):
+                 "contact_apply", "contact_keys", "contact_gather",
+                 "contact_gather_mesh"):
         r = rows[name]
         table.append({
             "name": name, "route": "cuda", "source": sources[name][0],

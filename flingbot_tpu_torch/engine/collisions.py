@@ -6,12 +6,14 @@ stable-sort, gather positions / previous positions / packed ids (and, for
 meshes, rest positions) into sorted order, run the windowed pair
 projection, and scatter the result back through the sort permutation.  The
 JAX package sorts twice (a multi-operand forward sort and an inverse sort
-keyed by slot index) because a TPU gathers slowly; here the forward sort
-returns the permutation and the inverse is one scatter through it.  On the
-pallas backend the projection is the contacts kernel
-(`kernels.contacts`); on the xla backend it is `kernels.contacts_plain`,
-the counterpart of the JAX package's XLA code `_contacts_sorted_flat`.
-The grid step of the pallas backend takes the group without its scatter
+keyed by slot index) because a TPU gathers slowly; here torch.sort of the
+keys returns the permutation, the sorted arrays are one gather through it
+and the inverse is one scatter.  On the pallas backend the keys and the
+gather are two kernels (`kernels.contact_keys`, `kernels.contact_gather`)
+and the projection is the contacts kernel (`kernels.contacts`); on the
+xla backend all three are their plain versions, the counterpart of the
+JAX package's XLA code (`_contacts_sorted_flat` for the projection).  The
+grid step of the pallas backend takes the group without its scatter
 (`sort_and_project`) and scatters in its epilogue kernel
 (`kernels.contact_apply`).
 
@@ -30,41 +32,11 @@ import numpy as np
 import torch
 
 from flingbot_tpu_torch.engine import kernels
-from flingbot_tpu_torch.engine.kernels import (
-    PACK_IMMOBILE_BIT, PACK_INACTIVE_BIT)
+from flingbot_tpu_torch.engine.kernels import INT32_BIG, morton_code
 from flingbot_tpu_torch.engine.state import SolverParams
 from flingbot_tpu_torch.utils import trace
 
-INT32_BIG = 2 ** 30
 _EPS = 1e-9
-
-
-def _part1by2(x: torch.Tensor) -> torch.Tensor:
-    x = x & 0x3FF
-    x = (x | (x << 16)) & 0x30000FF
-    x = (x | (x << 8)) & 0x300F00F
-    x = (x | (x << 4)) & 0x30C30C3
-    x = (x | (x << 2)) & 0x9249249
-    return x
-
-
-def morton_code(cell: torch.Tensor) -> torch.Tensor:
-    """cell (B, 3, N) int32 in [0, 1024) -> (B, N) int32 Morton codes."""
-    return (_part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1)
-            | (_part1by2(cell[:, 2]) << 2))
-
-
-def pack_lattice_ids(n: int, lattice_w: int, active: torch.Tensor,
-                     immobile: torch.Tensor) -> torch.Tensor:
-    """(B, n) int32 per-slot packed id: lattice x (bits 0-7), lattice y
-    (bits 8-19), immobile flag (bit 20), inactive flag (bit 21)."""
-    assert lattice_w <= 256, "packed lattice ids support max_dimx <= 256"
-    i = torch.arange(n, dtype=torch.int32, device=active.device)
-    iy = i // lattice_w
-    ix = i % lattice_w
-    return ((ix | (iy << 8))[None]
-            | (immobile.to(torch.int32) << PACK_IMMOBILE_BIT)
-            | ((~active).to(torch.int32) << PACK_INACTIVE_BIT))
 
 
 def contact_params(params: SolverParams, rest_dist: float, batch: int,
@@ -79,45 +51,36 @@ def contact_params(params: SolverParams, rest_dist: float, batch: int,
     return row.expand(batch, -1).contiguous()
 
 
-def pack_slot_ids(n: int, active: torch.Tensor,
-                  immobile: torch.Tensor) -> torch.Tensor:
-    """(B, n) int32 packed id of the mesh mode: flat slot index (bits
-    0-19), immobile flag (bit 20), inactive flag (bit 21)."""
-    if n >= 1 << PACK_IMMOBILE_BIT:
-        raise ValueError("mesh packed ids support < 2^20 particles")
-    i = torch.arange(n, dtype=torch.int32, device=active.device)
-    return (i[None] | (immobile.to(torch.int32) << PACK_IMMOBILE_BIT)
-            | ((~active).to(torch.int32) << PACK_INACTIVE_BIT))
-
-
 def sort_particles(P, prev, w, active, *, rest_dist, lattice_w=None,
-                   rest_positions=None):
+                   rest_positions=None, backend: str = "pallas"):
     """Morton-sort one contact group's inputs.  P, prev (B, 3, N); w
     (B, N); active (B, N) bool; exactly one of lattice_w (grid mode) and
     rest_positions (B, 3, N) (mesh mode).  Returns (order (B, N), [xs, ys,
     zs, pxs, pys, pzs, packed] + [rx, ry, rz] in mesh mode) with every
     array in sorted order.  The sort is stable, as jax.lax.sort: Morton
     keys tie often, and tie order decides which pairs fall inside the
-    window."""
+    window.
+
+    torch.sort orders the keys on both backends.  Around it, backend
+    "pallas" launches two kernels: kernels.contact_keys (every key in one
+    pass) and kernels.contact_gather (every sorted array in one pass);
+    "xla" runs their plain versions on any device."""
     if (lattice_w is None) == (rest_positions is None):
         raise ValueError("pass exactly one of lattice_w / rest_positions")
-    n = P.shape[2]
-    # divide by a device tensor: a CUDA division by a host scalar
-    # multiplies by its reciprocal and can move a particle across a cell
-    rd = trace.upload(rest_dist, dtype=torch.float32, device=P.device)
-    cell = torch.clamp(torch.floor(P / rd).to(torch.int32) + 512, 0, 1023)
-    keys = torch.where(active, morton_code(cell),
-                       trace.upload(INT32_BIG, dtype=torch.int32,
-                                    device=P.device))
-    arrays = [P[:, 0], P[:, 1], P[:, 2], prev[:, 0], prev[:, 1], prev[:, 2]]
-    if rest_positions is None:
-        arrays.append(pack_lattice_ids(n, lattice_w, active, w <= 0))
+    if backend == "pallas":
+        keys_fn, gather_fn = kernels.contact_keys, kernels.contact_gather
+        # the kernels read contiguous arrays (no copy where they are)
+        P, prev, w, active = (a.contiguous() for a in (P, prev, w, active))
+        if rest_positions is not None:
+            rest_positions = rest_positions.contiguous()
+    elif backend == "xla":
+        keys_fn = kernels.contact_keys_plain
+        gather_fn = kernels.contact_gather_plain
     else:
-        arrays.append(pack_slot_ids(n, active, w <= 0))
-        arrays += [rest_positions[:, 0], rest_positions[:, 1],
-                   rest_positions[:, 2]]
-    _, order = torch.sort(keys, dim=1, stable=True)
-    return order, [torch.gather(a, 1, order).contiguous() for a in arrays]
+        raise ValueError(f"unknown backend {backend!r}")
+    _, order = torch.sort(keys_fn(P, active, rest_dist), dim=1, stable=True)
+    return order, gather_fn(order, P, prev, w, active, lattice_w=lattice_w,
+                            rest_positions=rest_positions)
 
 
 def sort_and_project(P, prev, w, active, params: SolverParams, *,
@@ -134,7 +97,8 @@ def sort_and_project(P, prev, w, active, params: SolverParams, *,
     with trace.span("solver.contacts.sort"):
         order, srt = sort_particles(P, prev, w, active, rest_dist=rest_dist,
                                     lattice_w=lattice_w,
-                                    rest_positions=rest_positions)
+                                    rest_positions=rest_positions,
+                                    backend=backend)
     with trace.span("solver.contacts.project"):
         cp = contact_params(params, rest_dist, P.shape[0], P.device)
         project = kernels.contacts if backend == "pallas" \
@@ -155,9 +119,10 @@ def contact_group(P, prev, w, active, params: SolverParams, *, rest_dist,
     cloths (lattice neighbours dropped by their packed ids) or
     rest_positions (B, 3, N) for meshes (pairs closer than rest_dist in the
     rest pose dropped: the kernel's mesh mode; the rest coordinates take
-    the same sort).  backend "pallas" projects with the contacts kernel,
-    "xla" with its plain version on any device (contact_group(backend=
-    "xla") -> _contacts_sorted_flat, collisions.py:399-402)."""
+    the same sort).  backend "pallas" sorts with the two sort kernels
+    (sort_particles) and projects with the contacts kernel, "xla" runs
+    their plain versions on any device (contact_group(backend="xla") ->
+    _contacts_sorted_flat, collisions.py:399-402)."""
     order, _, projected = sort_and_project(
         P, prev, w, active, params, rest_dist=rest_dist, lattice_w=lattice_w,
         rest_positions=rest_positions, window=window, iterations=iterations,

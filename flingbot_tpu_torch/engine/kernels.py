@@ -10,11 +10,17 @@ flingbot_tpu/engine/pallas_kernels.py).
   contact_apply  csrc/contact_apply.cu  <- no TPU kernel: the grid path's
                                            contact epilogue, which the JAX
                                            package leaves to XLA
+  contact_keys,  csrc/contact_sort.cu   <- no TPU kernel: the contact
+  contact_gather                           group's Morton keys and sorted
+                                           arrays, around torch.sort (XLA's
+                                           multi-operand sort in the JAX
+                                           package)
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; it never falls back.  Each launch
 adds one to LAUNCHES[name]; a mesh-mode launch of the contacts kernel also
-adds one to LAUNCHES["contacts_mesh"].  The launch geometry (the substeps
+adds one to LAUNCHES["contacts_mesh"], and one of contact_gather to
+LAUNCHES["contact_gather_mesh"].  The launch geometry (the substeps
 kernel's row bands, the contacts kernel's tiles) is computed here, so the
 CPU tests reach it.
 """
@@ -27,9 +33,13 @@ import functools
 import torch
 
 from flingbot_tpu_torch.engine import build as _build
+from flingbot_tpu_torch.utils import trace
 
-KERNELS = ("substeps", "contacts", "contact_apply")
-LAUNCHES = {name: 0 for name in KERNELS + ("contacts_mesh",)}
+SOURCES = ("substeps", "contacts", "contact_apply", "contact_sort")
+KERNELS = ("substeps", "contacts", "contact_apply", "contact_keys",
+           "contact_gather")
+LAUNCHES = {name: 0 for name in KERNELS + ("contacts_mesh",
+                                           "contact_gather_mesh")}
 
 SUB_PARAM_LEN = 21
 # [0]=dt_sub [1]=gravity_y [2]=damping [3]=dynamic_friction
@@ -46,6 +56,8 @@ MAX_MESH_WINDOW = 32
 
 PACK_IMMOBILE_BIT = 20
 PACK_INACTIVE_BIT = 21
+# the Morton key of an inactive slot: after every cloth slot in the sort
+INT32_BIG = 2 ** 30
 
 _EPS = 1e-9
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
@@ -64,25 +76,29 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-_libs: dict = {}  # the loaded libraries, by kernel name
+_libs: dict = {}  # the loaded libraries, by source name
 
 
 def build():
-    """Compile (in parallel) and load every kernel, once; returns the
-    libraries with their C signatures set."""
+    """Compile (in parallel) and load every kernel source, once; returns
+    the libraries, by source name, with their C signatures set."""
     if _libs:
         return _libs
-    libs = _build.build(KERNELS)
+    libs = _build.build(SOURCES)
     p = ctypes.c_void_p
     i = ctypes.c_int
     sub, con = libs["substeps"], libs["contacts"]
-    app = libs["contact_apply"]
+    app, srt = libs["contact_apply"], libs["contact_sort"]
     sub.flingbot_substeps.argtypes = [p] * 7 + [i] * 9 + [p]
     sub.flingbot_substeps_max_clusters.argtypes = [i, p]
     con.flingbot_contacts.argtypes = [p] * 14 + [i] * 8 + [p]
     app.flingbot_contact_apply.argtypes = [p] * 15 + [i] * 2 + [p]
+    srt.flingbot_contact_keys.argtypes = [p, p, ctypes.c_float, p, i, i, p]
+    srt.flingbot_contact_gather.argtypes = [p] * 6 + [i] + [p] * 2 + [i] * 2 \
+        + [p]
     for fn in (sub.flingbot_substeps, sub.flingbot_substeps_max_clusters,
-               con.flingbot_contacts, app.flingbot_contact_apply):
+               con.flingbot_contacts, app.flingbot_contact_apply,
+               srt.flingbot_contact_keys, srt.flingbot_contact_gather):
         fn.restype = i
     for lib in libs.values():
         lib.flingbot_error_string.argtypes = [i]
@@ -447,3 +463,141 @@ def contact_apply_plain(pvec, order, srt, out, V):
                                moving)
     return S.solve_picker_spheres(P, pvec[:, 14:20].reshape(B, 2, 3),
                                   col(12), moving), V
+
+
+# --------------------------------------------------------------------------
+# kernels 4 and 5: the contact group's Morton keys and sorted arrays
+# --------------------------------------------------------------------------
+
+def contact_keys(P, active, rest_dist):
+    """The Morton keys of one contact group (collisions.contact_group,
+    flingbot_tpu/engine/collisions.py:336-341).  P (B, 3, N) f32, active
+    (B, N) bool.  Returns (B, N) i32: the Morton code of each slot's cell
+    (cell = rest_dist, clamped to 1024 a side around the origin), and
+    INT32_BIG for inactive slots, so that they sort last."""
+    if P.device.type == "cpu":
+        return contact_keys_plain(P, active, rest_dist)
+    B, _, N = P.shape
+    _check(P, "P", (B, 3, N))
+    _check(active, "active", (B, N), torch.bool)
+    lib = build()["contact_sort"]
+    keys = torch.empty((B, N), dtype=torch.int32, device=P.device)
+    # ctypes rounds rest_dist to the nearest float32, as the plain
+    # version's upload does: the kernel divides by exactly that float
+    _launch(lib, lib.flingbot_contact_keys, [
+        P.data_ptr(), active.data_ptr(), float(rest_dist), keys.data_ptr(),
+        B, N], P.device)
+    LAUNCHES["contact_keys"] += 1
+    return keys
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def morton_code(cell: torch.Tensor) -> torch.Tensor:
+    """cell (B, 3, N) int32 in [0, 1024) -> (B, N) int32 Morton codes."""
+    return (_part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1)
+            | (_part1by2(cell[:, 2]) << 2))
+
+
+def contact_keys_plain(P, active, rest_dist):
+    """Plain PyTorch version of `contact_keys`, and the xla backend's keys
+    on every device."""
+    # divide by a device tensor: a CUDA division by a host scalar
+    # multiplies by its reciprocal and can move a particle across a cell
+    rd = trace.upload(rest_dist, dtype=torch.float32, device=P.device)
+    cell = torch.clamp(torch.floor(P / rd).to(torch.int32) + 512, 0, 1023)
+    return torch.where(active, morton_code(cell),
+                       trace.upload(INT32_BIG, dtype=torch.int32,
+                                    device=P.device))
+
+
+def contact_gather(order, P, prev, w, active, *, lattice_w=None,
+                   rest_positions=None):
+    """One contact group's inputs in sorted order (the payload of
+    jax.lax.sort in collisions.contact_group,
+    flingbot_tpu/engine/collisions.py:342-364).  order (B, N) i64, the
+    sort's permutation; P, prev (B, 3, N) f32; w (B, N) f32; active (B, N)
+    bool; exactly one of lattice_w (grid mode) and rest_positions (B, 3, N)
+    f32 (mesh mode).  Returns [xs, ys, zs, pxs, pys, pzs, packed] + [rx,
+    ry, rz] in mesh mode, each (B, N) and contiguous: the positions, the
+    previous positions, the packed ids (pack_lattice_ids, or pack_slot_ids
+    in mesh mode) and the rest positions of slot order[b, j] at [b, j]."""
+    if (lattice_w is None) == (rest_positions is None):
+        raise ValueError("pass exactly one of lattice_w / rest_positions")
+    if P.device.type == "cpu":
+        return contact_gather_plain(order, P, prev, w, active,
+                                    lattice_w=lattice_w,
+                                    rest_positions=rest_positions)
+    B, _, N = P.shape
+    mesh = rest_positions is not None
+    _check(order, "order", (B, N), torch.int64)
+    _check(P, "P", (B, 3, N))
+    _check(prev, "prev", (B, 3, N))
+    _check(w, "w", (B, N))
+    _check(active, "active", (B, N), torch.bool)
+    if mesh:
+        _check(rest_positions, "rest_positions", (B, 3, N))
+        if N >= 1 << PACK_IMMOBILE_BIT:
+            raise ValueError("mesh packed ids support < 2^20 particles")
+    elif not 0 < lattice_w <= 256:
+        raise ValueError("packed lattice ids support max_dimx <= 256")
+    lib = build()["contact_sort"]
+    out = torch.empty((9 if mesh else 6, B, N), dtype=torch.float32,
+                      device=P.device)
+    packed = torch.empty((B, N), dtype=torch.int32, device=P.device)
+    _launch(lib, lib.flingbot_contact_gather, [
+        order.data_ptr(), P.data_ptr(), prev.data_ptr(), w.data_ptr(),
+        active.data_ptr(), rest_positions.data_ptr() if mesh else None,
+        0 if mesh else int(lattice_w), out.data_ptr(), packed.data_ptr(), B,
+        N], P.device)
+    LAUNCHES["contact_gather"] += 1
+    if mesh:
+        LAUNCHES["contact_gather_mesh"] += 1
+    return list(out[:6]) + [packed] + list(out[6:])
+
+
+def pack_lattice_ids(n: int, lattice_w: int, active: torch.Tensor,
+                     immobile: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32 per-slot packed id: lattice x (bits 0-7), lattice y
+    (bits 8-19), immobile flag (bit 20), inactive flag (bit 21)."""
+    assert lattice_w <= 256, "packed lattice ids support max_dimx <= 256"
+    i = torch.arange(n, dtype=torch.int32, device=active.device)
+    iy = i // lattice_w
+    ix = i % lattice_w
+    return ((ix | (iy << 8))[None]
+            | (immobile.to(torch.int32) << PACK_IMMOBILE_BIT)
+            | ((~active).to(torch.int32) << PACK_INACTIVE_BIT))
+
+
+def pack_slot_ids(n: int, active: torch.Tensor,
+                  immobile: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32 packed id of the mesh mode: flat slot index (bits
+    0-19), immobile flag (bit 20), inactive flag (bit 21)."""
+    if n >= 1 << PACK_IMMOBILE_BIT:
+        raise ValueError("mesh packed ids support < 2^20 particles")
+    i = torch.arange(n, dtype=torch.int32, device=active.device)
+    return (i[None] | (immobile.to(torch.int32) << PACK_IMMOBILE_BIT)
+            | ((~active).to(torch.int32) << PACK_INACTIVE_BIT))
+
+
+def contact_gather_plain(order, P, prev, w, active, *, lattice_w=None,
+                         rest_positions=None):
+    """Plain PyTorch version of `contact_gather`, and the xla backend's
+    gathers on every device: the packed ids in slot order, then one
+    torch.gather through order per array."""
+    n = P.shape[2]
+    arrays = [P[:, 0], P[:, 1], P[:, 2], prev[:, 0], prev[:, 1], prev[:, 2]]
+    if rest_positions is None:
+        arrays.append(pack_lattice_ids(n, lattice_w, active, w <= 0))
+    else:
+        arrays.append(pack_slot_ids(n, active, w <= 0))
+        arrays += [rest_positions[:, 0], rest_positions[:, 1],
+                   rest_positions[:, 2]]
+    return [torch.gather(a, 1, order).contiguous() for a in arrays]

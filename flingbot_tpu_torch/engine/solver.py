@@ -9,10 +9,12 @@ versions and the glue between launches.  One frame = `substeps` substeps
 in groups of `contact_every`.  A group is one `kernels.substeps` launch
 (integrate -> springs + plane iterations -> speed-up-only velocity clamp
 -> picker push, the last picker push deferred), then one contact group:
-the Morton sort, the contacts kernel, and one `kernels.contact_apply`
-launch (scatter back -> plane -> velocity add under the same clamp ->
-picker push; the pallas ordering of _step_grid_pallas,
-solver.py:571-660).  Without self-collision, one launch of all substeps.
+the Morton sort (`kernels.contact_keys`, torch.sort,
+`kernels.contact_gather`), the contacts kernel, and one
+`kernels.contact_apply` launch (scatter back -> plane -> velocity add
+under the same clamp -> picker push; the pallas ordering of
+_step_grid_pallas, solver.py:571-660).  Without self-collision, one
+launch of all substeps.
 With drag or lift set, one launch per substep with the aero kick between
 launches (solver.py:617-644).
 

@@ -109,8 +109,8 @@ def upload(data, *, dtype, device) -> torch.Tensor:
     pageable host memory returns only after the device has drained its
     stream.  The solver's per-frame constants go through it: the grid
     step's kernel parameters and substep length, the substep loop's
-    gravity, the aero pass's wind and the contact group's parameters and
-    sort scalars."""
+    gravity, the aero pass's wind, the contact group's parameters and
+    the scalars of its plain sort (the xla backend, and the CPU)."""
     count("host_syncs")
     with span("solver.sync"):
         return torch.tensor(data, dtype=dtype, device=device)

@@ -397,7 +397,7 @@ def _apply_inputs(batch, seed=0, params=APPLY_PARAMS[0]):
     B, _, N = P.shape
     gen = torch.Generator().manual_seed(seed)
     order = torch.argsort(torch.rand(B, N, generator=gen), dim=1)
-    packed = collisions.pack_lattice_ids(N, DIM, valid, w <= 0)
+    packed = kernels.pack_lattice_ids(N, DIM, valid, w <= 0)
     gather = lambda a: torch.gather(a, 1, order).contiguous()  # noqa: E731
     srt = [gather(P[:, c]) for c in range(3)] + [
         gather(prev[:, c]) for c in range(3)] + [gather(packed)]
@@ -454,6 +454,115 @@ def test_contact_apply_plain_is_the_old_chain(B, seed, params):
     wrap_P, wrap_V = kernels.contact_apply(*args)
     assert kernels.LAUNCHES == before  # the plain version on the CPU
     assert torch.equal(wrap_P, want_P) and torch.equal(wrap_V, want_V)
+
+
+SORT_RD = SolverParams().radius
+
+
+def _sort_inputs(mode, seed=0):
+    """Two envs of DIM x DIM slots for the contact group's sort: clouds
+    clumped into 27 Morton cells (~10 particles a cell, so keys tie), a
+    few on cell boundaries where a division by the reciprocal of rest_dist
+    would floor to another cell, a few far enough out for the cell clamp;
+    inactive slots (a tail in env 0, scattered in env 1) and immobile ones
+    (w = 0, some of them inactive too).  Returns (P, prev, w, active,
+    sort keywords) on the CPU; mesh mode adds seeded rest positions."""
+    rng = np.random.default_rng(seed)
+    B, N = 2, DIM * DIM
+    rd = np.float32(SORT_RD)
+    cells = rng.integers(-1, 2, (B, 3, N))
+    P = ((cells + rng.random((B, 3, N))) * rd).astype(np.float32)
+    # boundaries: x = k * rd in float32 and its neighbours up to 3 ulps
+    # away, kept where floor(x / rd) and floor(x * (1 / rd)) differ
+    base = np.arange(-512, 512, dtype=np.float32) * rd
+    x = [base]
+    for d in (np.inf, -np.inf):
+        near = base
+        for _ in range(3):
+            near = np.nextafter(near, np.float32(d))
+            x.append(near)
+    x = np.concatenate(x)
+    x = x[np.floor(x / rd) != np.floor(x * (np.float32(1) / rd))]
+    assert x.size >= 16, x.size
+    P[:, 0, :x.size] = x
+    # past the 1024-cell clamp, and past int32 (the cast saturates)
+    P[0, :, -4:] = [[30.0, -30.0, 0.0, 1e9]] * 3
+    prev = (P + rng.normal(0, 1e-3, P.shape)).astype(np.float32)
+    w = np.full((B, N), 100.0, np.float32)
+    w[:, [3, 50, 77, N - 30]] = 0.0
+    active = np.ones((B, N), bool)
+    active[0, N - 20:-4] = False
+    active[1] = rng.random(N) > 0.1
+    t = torch.tensor
+    kw = dict(lattice_w=DIM)
+    if mode == "mesh":
+        kw = dict(rest_positions=t(rng.normal(0, 0.05, (B, 3, N))
+                                   .astype(np.float32)))
+    return t(P), t(prev), t(w), t(active), kw
+
+
+def _old_sort_chain(P, prev, w, active, lattice_w=None, rest_positions=None):
+    """sort_particles as written before its two kernels, the Morton code
+    and the packed ids inline: (keys, order, the sorted arrays)."""
+    def part1by2(x):
+        x = x & 0x3FF
+        for shift, mask in ((16, 0x30000FF), (8, 0x300F00F), (4, 0x30C30C3),
+                            (2, 0x9249249)):
+            x = (x | (x << shift)) & mask
+        return x
+
+    rd = torch.tensor(SORT_RD, dtype=torch.float32)
+    cell = torch.clamp(torch.floor(P / rd).to(torch.int32) + 512, 0, 1023)
+    code = (part1by2(cell[:, 0]) | (part1by2(cell[:, 1]) << 1)
+            | (part1by2(cell[:, 2]) << 2))
+    keys = torch.where(active, code, torch.tensor(2 ** 30, dtype=torch.int32))
+    i = torch.arange(P.shape[2], dtype=torch.int32)
+    ids = i if lattice_w is None else (i % lattice_w) | ((i // lattice_w) << 8)
+    packed = (ids[None] | ((w <= 0).to(torch.int32) << 20)
+              | ((~active).to(torch.int32) << 21))
+    arrays = [P[:, 0], P[:, 1], P[:, 2], prev[:, 0], prev[:, 1], prev[:, 2],
+              packed]
+    if rest_positions is not None:
+        arrays += [rest_positions[:, c] for c in range(3)]
+    _, order = torch.sort(keys, dim=1, stable=True)
+    return keys, order, [torch.gather(a, 1, order) for a in arrays]
+
+
+@pytest.mark.parametrize("mode", ["grid", "mesh"])
+def test_contact_sort_plain_is_the_old_chain(mode):
+    """contact_keys_plain, torch.sort and contact_gather_plain against the
+    sort as it was written before them, bit for bit: keys, order and every
+    sorted array; then sort_particles on both backends, which on the CPU
+    run that plain chain and launch nothing."""
+    P, prev, w, active, kw = _sort_inputs(mode)
+    want_keys, want_order, want = _old_sort_chain(P, prev, w, active, **kw)
+    keys = kernels.contact_keys_plain(P, active, SORT_RD)
+    assert torch.equal(keys, want_keys)
+    live = keys[active]
+    assert live.unique().numel() * 4 < live.numel()  # keys tie
+    assert (keys == 2 ** 30).sum() == (~active).sum()
+    _, order = torch.sort(keys, dim=1, stable=True)
+    assert torch.equal(order, want_order)
+    got = kernels.contact_gather_plain(order, P, prev, w, active, **kw)
+    assert len(got) == (10 if mode == "mesh" else 7)
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and torch.equal(a, b)
+    # every flag of the packed ids occurs
+    packed = got[6]
+    for bit in (kernels.PACK_IMMOBILE_BIT, kernels.PACK_INACTIVE_BIT):
+        assert ((packed >> bit) & 1).any()
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.contact_keys(P, active, SORT_RD), want_keys)
+    for backend in ("xla", "pallas"):
+        o, srt = collisions.sort_particles(P, prev, w, active,
+                                           rest_dist=SORT_RD,
+                                           backend=backend, **kw)
+        assert torch.equal(o, want_order)
+        assert all(torch.equal(a, b) for a, b in zip(srt, want))
+    assert kernels.LAUNCHES == before  # the plain versions on the CPU
+    with pytest.raises(ValueError, match="unknown backend"):
+        collisions.sort_particles(P, prev, w, active, rest_dist=SORT_RD,
+                                  backend="tpu", **kw)
 
 
 @pytest.fixture
@@ -581,22 +690,28 @@ def test_cuda_contact_apply_matches_plain(cuda_device, B, seed, params):
         assert torch.equal(a, b)
 
 
+def _grid_frame_batch(device):
+    """The three APPLY_DIMS cloths of _apply_batch as a ClothState and its
+    topology on `device`."""
+    _, P, _, V, w, valid, _, picker = _apply_batch(3)
+    topo = build_grid_topology([d[0] for d in APPLY_DIMS],
+                               [d[1] for d in APPLY_DIMS], max_dimx=DIM,
+                               max_dimy=DIM, device=device)
+    t = lambda a: a.to(device)  # noqa: E731
+    state = ClothState(
+        positions=t(P), velocities=t(V), inv_mass=t(w), rest_inv_mass=t(w),
+        active=t(valid), picker_pos=t(picker),
+        picked_idx=torch.full((3, 2), -1, dtype=torch.int64, device=device))
+    return state, topo
+
+
 @pytest.mark.cuda
 def test_cuda_grid_frame_with_the_apply_kernel_is_the_plain_frame(
         cuda_device, monkeypatch):
     """One solver.step grid frame on the card (production knobs, both
     pickers in env 0's cloth) launches contact_apply once a contact group,
     and equals the same frame with the plain epilogue bit for bit."""
-    _, P, _, V, w, valid, _, picker = _apply_batch(3)
-    topo = build_grid_topology([d[0] for d in APPLY_DIMS],
-                               [d[1] for d in APPLY_DIMS], max_dimx=DIM,
-                               max_dimy=DIM, device=cuda_device)
-    t = lambda a: a.to(cuda_device)  # noqa: E731
-    state = ClothState(
-        positions=t(P), velocities=t(V), inv_mass=t(w), rest_inv_mass=t(w),
-        active=t(valid), picker_pos=t(picker),
-        picked_idx=torch.full((3, 2), -1, dtype=torch.int64,
-                              device=cuda_device))
+    state, topo = _grid_frame_batch(cuda_device)
     before = kernels.LAUNCHES["contact_apply"]
     got = step(state, topo, SolverParams())
     assert kernels.LAUNCHES["contact_apply"] == before + 2
@@ -604,5 +719,73 @@ def test_cuda_grid_frame_with_the_apply_kernel_is_the_plain_frame(
                         kernels.contact_apply_plain)
     want = step(state, topo, SolverParams())
     assert kernels.LAUNCHES["contact_apply"] == before + 2
+    assert torch.equal(got.positions, want.positions)
+    assert torch.equal(got.velocities, want.velocities)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["grid", "mesh"])
+def test_cuda_sort_kernels_match_plain(cuda_device, mode):
+    """csrc/contact_sort.cu against contact_keys_plain and
+    contact_gather_plain on _sort_inputs' two envs (ties, cell boundaries,
+    the clamp, inactive and immobile slots): keys, order and every sorted
+    array bit for bit, and sort_particles' two backends equal."""
+    P, prev, w, active, kw = _sort_inputs(mode)
+    P, prev, w, active = (a.to(cuda_device) for a in (P, prev, w, active))
+    kw = {k: v.to(cuda_device) if torch.is_tensor(v) else v
+          for k, v in kw.items()}
+    before = dict(kernels.LAUNCHES)
+    keys = kernels.contact_keys(P, active, SORT_RD)
+    assert torch.equal(keys, kernels.contact_keys_plain(P, active, SORT_RD))
+    _, order = torch.sort(keys, dim=1, stable=True)
+    got = kernels.contact_gather(order, P, prev, w, active, **kw)
+    want = kernels.contact_gather_plain(order, P, prev, w, active, **kw)
+    assert len(got) == len(want) == (10 if mode == "mesh" else 7)
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and a.dtype == b.dtype and torch.equal(a, b)
+    mesh = int(mode == "mesh")
+    assert kernels.LAUNCHES["contact_keys"] == before["contact_keys"] + 1
+    assert kernels.LAUNCHES["contact_gather"] == before["contact_gather"] + 1
+    assert kernels.LAUNCHES["contact_gather_mesh"] == \
+        before["contact_gather_mesh"] + mesh
+    o_k, s_k = collisions.sort_particles(P, prev, w, active,
+                                         rest_dist=SORT_RD, **kw)
+    o_p, s_p = collisions.sort_particles(P, prev, w, active,
+                                         rest_dist=SORT_RD, backend="xla",
+                                         **kw)
+    assert torch.equal(o_k, o_p) and torch.equal(o_k, order)
+    assert all(torch.equal(a, b) for a, b in zip(s_k, s_p))
+    assert kernels.LAUNCHES["contact_keys"] == before["contact_keys"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["grid", "mesh"])
+def test_cuda_frame_with_the_sort_kernels_is_the_plain_frame(
+        cuda_device, monkeypatch, mode):
+    """One solver.step frame on the card launches both sort kernels once a
+    contact group and equals the same frame with their plain versions bit
+    for bit: the grid frame at the production knobs, and a layered frame
+    of two OBJ shirts (mesh mode) at _obj_shirt_contact_inputs' knobs."""
+    from flingbot_tpu_torch.env.scene import make_batch, shirt_task
+
+    if mode == "grid":
+        state, topo = _grid_frame_batch(cuda_device)
+        kw, groups = {}, 2
+    else:
+        path = os.path.join(ROOT, "data", "shirts", "shirt_00_processed.obj")
+        topo, state = make_batch([shirt_task(path)] * 2, device=cuda_device)
+        kw = dict(substeps=2, iterations=4, contact_every=2,
+                  contact_iterations=2, contact_window=12)
+        groups = 1
+    before = dict(kernels.LAUNCHES)
+    got = step(state, topo, SolverParams(), **kw)
+    for name in ("contact_keys", "contact_gather"):
+        assert kernels.LAUNCHES[name] == before[name] + groups
+    assert kernels.LAUNCHES["contact_gather_mesh"] == \
+        before["contact_gather_mesh"] + (groups if mode == "mesh" else 0)
+    monkeypatch.setattr(kernels, "contact_keys", kernels.contact_keys_plain)
+    monkeypatch.setattr(kernels, "contact_gather",
+                        kernels.contact_gather_plain)
+    want = step(state, topo, SolverParams(), **kw)
     assert torch.equal(got.positions, want.positions)
     assert torch.equal(got.velocities, want.velocities)

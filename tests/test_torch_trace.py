@@ -21,7 +21,12 @@ from flingbot_tpu_torch.utils import trace
 
 DIM = 16
 DIMS = ((16, 16), (12, 14))  # (dimx, dimy) of each env
-SYNCS_PER_FRAME = 8  # 2 in the frame's set-up, 3 in each contact group
+# a grid frame on a card: 2 uploads in the frame's set-up, the contact
+# parameters in each contact group (its sort kernels take rest_dist as an
+# argument)
+SYNCS_PER_FRAME = 4
+# on the CPU each contact group's plain sort also uploads its two scalars
+CPU_SYNCS_PER_FRAME = SYNCS_PER_FRAME + 2 * 2
 STAGES = ("solver.prep", "solver.substeps", "solver.contacts.sort",
           "solver.contacts.project", "solver.contacts.apply",
           "solver.substeps", "solver.contacts.sort",
@@ -113,21 +118,23 @@ def test_a_grid_frame_records_its_stages_under_one_root(tracing):
                 syncs[parent_name] = syncs.get(parent_name, 0) + 1
         assert syncs == {"solver.prep": 2, "solver.contacts.sort": 4,
                          "solver.contacts.project": 2}
-    assert len(spans) == 2 * (1 + len(STAGES) + SYNCS_PER_FRAME)
+    assert len(spans) == 2 * (1 + len(STAGES) + CPU_SYNCS_PER_FRAME)
 
 
 def test_host_syncs_rise_by_nine_a_frame_at_the_production_knobs():
     # the name is older than the count: a grid frame's dt upload went
-    # with the contact epilogue kernel, and SYNCS_PER_FRAME is now 8
+    # with the contact epilogue kernel, and on the CPU a frame now makes
+    # CPU_SYNCS_PER_FRAME (8; SYNCS_PER_FRAME on a card)
     state, topo = _batch("cpu")
     trace.drain()
     for frames in (1, 2):
         for _ in range(frames):
             state = step(state, topo, SolverParams())
         _, counts = trace.drain()
-        assert counts["host_syncs"] == SYNCS_PER_FRAME * frames
-        assert set(counts["launches"]) == {"substeps", "contacts",
-                                           "contacts_mesh", "contact_apply"}
+        assert counts["host_syncs"] == CPU_SYNCS_PER_FRAME * frames
+        assert set(counts["launches"]) == {
+            "substeps", "contacts", "contacts_mesh", "contact_apply",
+            "contact_keys", "contact_gather", "contact_gather_mesh"}
 
 
 def test_a_span_whose_block_raises_still_closes(tracing):
