@@ -6,8 +6,10 @@
 Phases, each printed on its own line with its wall seconds:
   0  card name and power limit (nvidia-smi), torch and CUDA versions
   1  build the CUDA kernels from csrc/ with nvcc (parallel); each
-     kernel's registers and spill bytes (fails on a spill), and the
-     clusters of the substeps kernel the card runs at once
+     kernel's registers and spill bytes (fails on a spill), the clusters
+     of the substeps kernel the card runs at once, its strip height and
+     its spring evaluations a spring (full cloths, and the hard eval
+     set's dims)
   2  each kernel against its plain PyTorch version on the card, at the
      shapes of its path: the grid kernels at the rect path's (128 envs,
      104x104 lattice, dims 64-104), the aero launch of the substeps kernel
@@ -451,12 +453,22 @@ def phase_build(device):
                 r"(\d+) bytes spill (?:stores|loads)", line))
     if spills:
         raise AssertionError(f"a kernel spills registers ({spills} bytes)")
+    import numpy as np
+
+    with np.load(os.path.join(ROOT, RECT_TASKS)) as z:
+        hard = [tuple(int(v) for v in z[k]) for k in z.files
+                if k.endswith("/cloth_size")]
     for H in (104, BENCH_DIM, LARGE_DIM):
-        band, smem = kernels.substeps_band(H, H)
+        band, strip, smem = kernels.substeps_band(H, H)
         n = kernels.substeps_max_clusters(device.index or 0, smem)
+        evals = kernels.substeps_evals_per_spring([(H, H)], H, H)
         log(f"  substeps at {H}x{H}, cluster of {kernels.SUBSTEPS_CLUSTER} "
-            f"CTAs: band {band} rows, {smem} B shared memory per CTA, "
-            f"cudaOccupancyMaxActiveClusters {n}")
+            f"CTAs: band {band} rows, strips of {strip} rows, {smem} B "
+            f"shared memory per CTA, cudaOccupancyMaxActiveClusters {n}, "
+            f"{evals:.3f} spring evaluations a spring (full cloths)")
+    log(f"  substeps at the hard set's dims on the 104 lattice: "
+        f"{kernels.substeps_evals_per_spring(hard, 104, 104):.3f} spring "
+        f"evaluations a spring")
 
 
 def synthetic_inputs(B, H, W, gen, device, full=False, lo=64, size=None):

@@ -11,44 +11,77 @@
 // (the last one skipped when picker_last == 0).  Returns P, V and the
 // positions at the start of the last substep.
 //
-// What bounds it on this card: f32 issue and shared-memory bandwidth.
-// Every iteration reads 12 neighbours and 12 spring coefficients per
-// particle; device memory is touched only at launch start, integrate,
-// finalize and launch end.
+// What bounds it on this card: instruction issue and latency in the spring
+// loop.  Device memory is touched only at launch start, integrate,
+// finalize and launch end.  A spring's length, rsqrt and relaxation
+// e = 1 - rest / |d| cost ~16 instructions, its two end terms ~14 more; a
+// row of a thread's strip (6 springs, 12 terms, Chebyshev, plane, store)
+// is one dependent chain of ~300 instructions, so the loop runs at the
+// pace of the warps an SM holds (two CTAs of 14 warps at 72 registers).
 //
-// Design.  An iteration reads the whole previous iterate of an env, so one
-// env is one cluster of kCluster = 8 CTAs (a launch attribute), each owning
-// a band of the env's own rows (max(2, ceil(dimy / 8))) and holding it
-// with a 2-row halo above and below (the stencil reaches dy = +-2) in
-// shared memory:
-//   - two ping-pong position buffers X0, X1 (3 planes each).  Iteration it
-//     reads A = X[it & 1] and writes its result over B = X[(it + 1) & 1],
-//     which holds the iterate before A: the Chebyshev update
-//     omega * (J(A) - B) + B reads and writes only the thread's own slot of
-//     B, so one barrier per iteration suffices;
+// Cluster and bands.  An iteration reads the whole previous iterate of an
+// env, so one env is one cluster of kCluster = 8 CTAs (a launch attribute),
+// each owning a band of the env's own rows (max(2, ceil(dimy / 8))) and
+// holding it with a 2-row halo above and below (the stencil reaches
+// dy = +-2) in shared memory:
+//   - two ping-pong position buffers X0, X1 of float4 (x, y, z, w: the
+//     inverse mass rides with the position, so a neighbour's w costs no
+//     load).  Iteration it reads A = X[it & 1] and writes its result over
+//     B = X[(it + 1) & 1], which holds the iterate before A: the Chebyshev
+//     update omega * (J(A) - B) + B reads and writes only the thread's own
+//     slot of B, so one barrier per iteration suffices;
 //   - the spring coefficient q = stiff / (w_i + w_j + eps) of each class
-//     at each constraint's start slot (6 planes over the band and the halo
-//     above it), computed once per launch: the start end takes (w_i * q)
-//     and the other end (w_j * q) of the same q, so the loop does no
-//     division and never reads a neighbour's w;
-//   - a record per owned slot: a metadata word (12 constraint-liveness
-//     bits, moving, halo-row flags and the slot's shared-memory index, so
-//     the loop does no bounds check and no i / W), the relaxation factor,
-//     w and the substep-start position (the plane's friction and the
-//     finalize read it).
-// After writing its own slots a CTA writes its first and last two rows
-// into its neighbours' halos through distributed shared memory
-// (cluster.map_shared_rank), then the cluster synchronises once.  V stays
-// in device memory, read at integrate and finalize only.  At 104 x 104
-// and 8 CTAs, a CTA holds 17 + 15 rows x 104 x 6 planes + 13 x 104 x 6
-// words (110 KB), so two CTAs of 512 threads share an SM and one's
-// cluster barrier overlaps the other's work (a cluster of 4 needs 205 KB
-// a CTA: one per SM).  Threads walk the env's dimx x dimy slots, not the
-// lattice; slots outside the cloth are copied through once.  Each spring
-// is evaluated from both ends (a start-role and a neighbour-role term per
-// slot and class) so that no atomics are needed and every slot sums in
-// the plain version's order.  Built with -fmad=false (engine/build.py),
-// it matches engine/kernels.py substeps_plain bit for bit.
+//     at each constraint's start slot (6 planes over the band and the 2
+//     rows above it), computed once per launch, 0 for a dead constraint;
+//     the start end takes (w_i * q) and the other end (w_j * q);
+//   - per owned slot the relaxation factor and the substep-start x and z
+//     (the plane's friction reads them).
+// Both buffers are zeroed at launch, so every cell the stencil can read
+// outside the cloth holds 0: a dead constraint's zero coefficient then
+// gives a zero term (as the plain version's zero coefficient planes do),
+// and the loop needs no liveness bits and no selects.  After writing its
+// own slots a CTA writes its first and last two rows into its neighbours'
+// halos through distributed shared memory (st.shared::cluster), then
+// arrives at the cluster barrier; the next iteration starts with the wait.
+// V stays in device memory, read at integrate and finalize only.  At
+// 104 x 104 a CTA holds 17 rows x 104 x 8 + 15 x 104 x 6 + 13 x 104 x 3
+// words (110 KB), so two CTAs share an SM and one's cluster barrier
+// overlaps the other's work.
+//
+// Column strips: each spring once, from registers.  The CTA's owned rows
+// are cut into strips, the shortest that fit one column of each strip in
+// the CTA's 14 x 29 owning lanes (at most `strip` rows, the lattice's:
+// engine/kernels.py substeps_band; 5 at 104 for a full cloth, 3-4 for
+// most of the hard set's 64-104).  A thread walks one column of one strip
+// down, row by row, holding its column's rows y .. y + 2 in registers.
+// Lanes 2..30 of a warp own consecutive positions of the strips laid end
+// to end (position p = strip * dimx + x); lanes 0, 1 and 31 repeat the
+// columns of the neighbouring warps' edges.  For each row the thread
+// evaluates the 6 springs that START at its slot, once each:
+//   - vertical springs (dy = 1, 2): both ends are this thread's; the far
+//     end's term waits in registers for its row;
+//   - horizontal and diagonal springs: the far end is lane +1 or +2 (dx =
+//     1, 2; class 4 one row down) or lane -1 (class 5, one row down); the
+//     thread computes the far end's term b * d and hands it over by
+//     __shfl_up_sync / __shfl_down_sync (3 words), at once or at the next
+//     row.
+// Positions across a strip boundary (column dimx - 1 beside the next
+// strip's column 0) are joined by no spring, so their exchanged terms are
+// zeros; lanes past the last position wrap around to the first, where the
+// same holds.  Each slot still sums its 12 terms in the plain order (per
+// class: start-role term, then minus the neighbour-role term), and the
+// terms are the plain version's bit for bit, as it too computes e and d
+// once per spring.  Work still done twice: the springs that start in the
+// 2 rows above a strip (5 of them a column: its top row's neighbour-role
+// terms), the halo lanes' springs (3 of 32 lanes), and the rows that a
+// warp's shorter strips idle through; engine/kernels.py
+// substeps_evals_per_spring counts evaluations per spring from this
+// layout: 1.54 at the hard set's dims, where each slot evaluating its 12
+// spring ends made 2.04.  rsqrt and the plane's sqrt take their .ftz
+// forms, which give the same bits on their arguments (>= eps, never
+// subnormal) without the subnormal fix-up.  Built with -fmad=false
+// (engine/build.py), it matches engine/kernels.py substeps_plain bit for
+// bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,24 +90,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
 // CTAs per env; engine/kernels.py SUBSTEPS_CLUSTER sizes the bands with it
 constexpr int kCluster = 8;
+// threads of a CTA (14 warps: two CTAs an SM at 72 registers), owning
+// lanes of a warp (2..30) and the most rows of a strip; mirrored by
+// engine/kernels.py SUBSTEPS_WARPS, SUBSTEPS_WARP_COLUMNS and
+// SUBSTEPS_MAX_STRIP
+constexpr int kThreads = 448;
+constexpr int kOwnLanes = 29;
+constexpr int kMaxStrip = 6;
 constexpr float kEps = 1e-9f;
 constexpr int kChebDelay = 2;
 constexpr int kParamLen = 21;
-// metadata word of an owned slot: bit 2k start-role constraint of class k
-// live, bit 2k + 1 neighbour-role constraint live, then these flags, and
-// the slot's index in the band from kIndexShift up
-constexpr unsigned kMoving = 1u << 12;
-constexpr unsigned kHaloUp = 1u << 13;    // one of the band's first 2 rows
-constexpr unsigned kHaloDown = 1u << 14;  // one of the band's last 2 rows
-constexpr int kIndexShift = 16;
-// the record of an owned slot: metadata word, relaxation factor, inverse
-// mass, substep-start position (x, y, z); the first four are read as two
-// float2 in every iteration
-constexpr int kRec = 6;
-constexpr int kMeta = 0, kInvc = 1, kW = 2, kPr = 3;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kSqrt2 = 1.41421356237309515f;
 
 // GRID_STENCIL_CLASSES: (dy, dx, rest in spacings, stiffness class)
 __device__ __forceinline__ void stencil(int k, int& dy, int& dx, float& rest,
@@ -84,8 +113,8 @@ __device__ __forceinline__ void stencil(int k, int& dy, int& dx, float& rest,
     case 1: dy = 1; dx = 0; rest = 1.0f; cls = 0; break;
     case 2: dy = 0; dx = 2; rest = 2.0f; cls = 1; break;
     case 3: dy = 2; dx = 0; rest = 2.0f; cls = 1; break;
-    case 4: dy = 1; dx = 1; rest = 1.41421356237309515f; cls = 2; break;
-    default: dy = 1; dx = -1; rest = 1.41421356237309515f; cls = 2; break;
+    case 4: dy = 1; dx = 1; rest = kSqrt2; cls = 2; break;
+    default: dy = 1; dx = -1; rest = kSqrt2; cls = 2; break;
   }
 }
 
@@ -114,58 +143,54 @@ __device__ __forceinline__ Params load_params(const float* p, int H, int W) {
   return q;
 }
 
-// One Jacobi spring pass for the owned slot at band index si: the displaced
-// position P_i + invc * sum of its corrections, summed per class as the
-// plain version does (start-role term, then neighbour-role term).  Every
-// term is computed and a dead constraint's is replaced by 0 (select, not
-// branch: no divergence at the cloth's edges, and the loads of all 12
-// neighbours can be issued together).  Its reads stay inside the band
-// (an owned slot's neighbours lie within 2 rows) but may be garbage, which
-// the selects discard.  Adding +0 in place of skipping the term changes
-// at most the sign of a zero sum.
-__device__ __forceinline__ void jacobi(const float* A, const float* Q,
-                                       int plane, int qplane, int W,
-                                       unsigned m, int si, float wi,
-                                       float invc, const Params& q,
-                                       float& ox, float& oy, float& oz) {
-  const float* Ay = A + plane;
-  const float* Az = A + 2 * plane;
-  const float px = A[si], py = Ay[si], pz = Az[si];
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    int dy, dx, cls;
-    float rest_k;
-    stencil(k, dy, dx, rest_k, cls);
-    const float rest = rest_k * q.spacing;
-    const int off = dy * W + dx;
-    const float* Qk = Q + k * qplane;
-    {  // start role: constraint (i, i + off)
-      const bool live = (m >> (2 * k)) & 1u;
-      const int j = si + off;
-      const float gA = wi * Qk[si];
-      const float d0 = A[j] - px, d1 = Ay[j] - py, d2 = Az[j] - pz;
-      const float r = rsqrtf(d0 * d0 + d1 * d1 + d2 * d2 + kEps);
-      const float a = gA * (1.f - rest * r);
-      a0 += live ? a * d0 : 0.f;
-      a1 += live ? a * d1 : 0.f;
-      a2 += live ? a * d2 : 0.f;
-    }
-    {  // neighbour role: constraint (i - off, i)
-      const bool live = (m >> (2 * k + 1)) & 1u;
-      const int h = si - off;
-      const float gB = wi * Qk[h];
-      const float d0 = px - A[h], d1 = py - Ay[h], d2 = pz - Az[h];
-      const float r = rsqrtf(d0 * d0 + d1 * d1 + d2 * d2 + kEps);
-      const float b = gB * (1.f - rest * r);
-      a0 -= live ? b * d0 : 0.f;
-      a1 -= live ? b * d1 : 0.f;
-      a2 -= live ? b * d2 : 0.f;
-    }
-  }
-  ox = px + invc * a0;
-  oy = py + invc * a1;
-  oz = pz + invc * a2;
+// rsqrt and sqrt of an argument >= kEps, never subnormal: the .ftz forms
+// give rsqrtf's and sqrtf's bits without their subnormal fix-up code
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float sqrt_normal(float x) {
+  float r;
+  asm("sqrt.rn.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The spring from p to o: d = o - p and its relaxation
+// e = 1 - rest * rsqrt(|d|^2 + eps), in the plain version's order.
+__device__ __forceinline__ float spring(const float4& p, const float4& o,
+                                        float rest, float3& d) {
+  d = make_float3(o.x - p.x, o.y - p.y, o.z - p.z);
+  const float r = rsqrt_normal(d.x * d.x + d.y * d.y + d.z * d.z + kEps);
+  return 1.f - rest * r;
+}
+
+// (g * e) * d: a spring end's term, g = w * q of that end
+__device__ __forceinline__ float3 term(float g, float e, const float3& d) {
+  const float a = g * e;
+  return make_float3(a * d.x, a * d.y, a * d.z);
+}
+
+__device__ __forceinline__ void plus(float3& acc, const float3& v) {
+  acc.x = acc.x + v.x; acc.y = acc.y + v.y; acc.z = acc.z + v.z;
+}
+
+__device__ __forceinline__ void minus(float3& acc, const float3& v) {
+  acc.x = acc.x - v.x; acc.y = acc.y - v.y; acc.z = acc.z - v.z;
+}
+
+// the value of lane - n (up) or lane + n (down)
+__device__ __forceinline__ float3 from_below(const float3& v, int n) {
+  return make_float3(__shfl_up_sync(kFull, v.x, n),
+                     __shfl_up_sync(kFull, v.y, n),
+                     __shfl_up_sync(kFull, v.z, n));
+}
+
+__device__ __forceinline__ float3 from_above(const float3& v, int n) {
+  return make_float3(__shfl_down_sync(kFull, v.x, n),
+                     __shfl_down_sync(kFull, v.y, n),
+                     __shfl_down_sync(kFull, v.z, n));
 }
 
 // ground plane y >= collision_distance with PBD Coulomb friction; a slot
@@ -176,29 +201,50 @@ __device__ __forceinline__ void ground(float& x, float& y, float& z, float prx,
   const float pen = q.coldist - y;
   if (!(pen > 0.f && moving)) return;
   const float dx = x - prx, dz = z - prz;
-  const float tn = sqrtf(dx * dx + dz * dz + kEps);
+  const float tn = sqrt_normal(dx * dx + dz * dz + kEps);
   const float f = fminf(1.f, q.mu * fmaxf(pen, 0.f) / tn);
   x -= dx * f;
   y += pen;
   z -= dz * f;
 }
 
-// Store a position at band index si, and into a neighbour's halo when the
-// slot lies in the band's first or last two rows.  `shift` = rows * W:
-// row g is local row g - s + 2 in every CTA's band, so the upper
-// neighbour (whose band starts rows earlier) keeps it `shift` further on.
-__device__ __forceinline__ void put(float* buf, float* up, float* down,
-                                    int plane, int si, int shift, unsigned m,
-                                    float x, float y, float z) {
-  buf[si] = x; buf[plane + si] = y; buf[2 * plane + si] = z;
-  if (m & kHaloUp) {
-    const int i = si + shift;
-    up[i] = x; up[plane + i] = y; up[2 * plane + i] = z;
-  }
-  if (m & kHaloDown) {
-    const int i = si - shift;
-    down[i] = x; down[plane + i] = y; down[2 * plane + i] = z;
-  }
+// The cluster barrier in two halves: arrive (release: this thread's
+// writes, distributed shared memory included, reach every CTA that waits)
+// and wait (acquire); warp-uniform
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the shared::cluster address of this CTA's shared address p in CTA rank
+__device__ __forceinline__ unsigned cluster_address(const void* p, int rank) {
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(r) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return r;
+}
+
+// Store a position at band index i, and into a neighbour's halo when the
+// slot lies in the band's first or last two rows (up, down: the
+// neighbours' shared::cluster addresses of this buffer).  `shift` =
+// rows * W: row g is local row g - s + 2 in every CTA's band, so the
+// upper neighbour (whose band starts rows earlier) keeps it `shift`
+// further on.
+__device__ __forceinline__ void put(float4* buf, unsigned up, unsigned down,
+                                    int i, int shift, bool to_up,
+                                    bool to_down, const float4& v) {
+  buf[i] = v;
+  if (to_up)
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+                 :: "r"(up + 16u * (unsigned)(i + shift)), "f"(v.x),
+                    "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+  if (to_down)
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+                 :: "r"(down + 16u * (unsigned)(i - shift)), "f"(v.x),
+                    "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -206,8 +252,9 @@ substeps_kernel(const float* __restrict__ params, const float* __restrict__ P,
                 const float* __restrict__ V, const float* __restrict__ w,
                 float* __restrict__ P_out, float* __restrict__ V_out,
                 float* __restrict__ prev_out, int H, int W, int n_sub,
-                int iterations, int cheb, int picker_last, int band) {
-  extern __shared__ float smem[];
+                int iterations, int cheb, int picker_last, int band,
+                int strip) {
+  extern __shared__ float4 smem[];
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int C = kCluster;
   const int rank = (int)cluster.block_rank();
@@ -218,15 +265,18 @@ substeps_kernel(const float* __restrict__ params, const float* __restrict__ P,
   const int HW = H * W;
   const size_t o3 = (size_t)b * 3 * HW;
 
-  // shared memory: 6 position planes of band + 4 rows, 6 coefficient
-  // planes of band + 2 rows (the start slots of rows [s - 2, e)), then a
-  // record of kRec words per owned slot
+  // shared memory: 2 float4 position buffers of band + 4 rows, the
+  // substep-start (x, z) of band rows, the 6 coefficients of each start
+  // slot of rows [s - 2, e) (band + 2 rows, a slot's 6 together: one
+  // address and 3 float2 loads a row), the relaxation factors of band
+  // rows
   const int plane = (band + 4) * W;
   const int qplane = (band + 2) * W;
-  float* X0 = smem;
-  float* X1 = smem + 3 * plane;
-  float* Q = smem + 6 * plane;
-  float* own = Q + 6 * qplane;
+  float4* X0 = smem;
+  float4* X1 = smem + plane;
+  float2* pr = reinterpret_cast<float2*>(smem + 2 * plane);
+  float* Q = reinterpret_cast<float*>(pr + band * W);
+  float* invc = Q + 6 * qplane;
 
   // this CTA's rows [s, e) of the env; band row g is local row g - s + 2
   const int rows = max(2, (dimy + C - 1) / C);
@@ -236,35 +286,68 @@ substeps_kernel(const float* __restrict__ params, const float* __restrict__ P,
   const int base = (s - 2) * W;  // lattice slot = band index + base
   const int shift = rows * W;
 
+  // this thread's column of a strip: position p of the strips laid end to
+  // end; a lane past either end wraps around (its terms reach no owner).
+  // The env's strips are the shortest that fit its columns in the CTA's
+  // owning lanes (at most `strip`, the lattice's): more warps at work
+  const int lane = t & 31;
+  const int fit = (kThreads / 32) * kOwnLanes / max(dimx, 1);
+  strip = min(strip, max(1, (e - s + fit - 1) / max(fit, 1)));
+  const int total = (e - s + strip - 1) / strip * dimx;
+  const int p = (t >> 5) * kOwnLanes - 2 + lane;
+  const bool own = lane >= 2 && lane < 2 + kOwnLanes && p < total;
+  const int pw = total > 0 ? ((p % total) + total) % total : 0;
+  const int col = total > 0 ? pw % dimx : 0;
+  const int y0 = s + (total > 0 ? pw / dimx : 0) * strip;
+  const int h = min(strip, e - y0);  // rows of the strip, >= 1 if total > 0
+  const int i0 = (y0 - s + 2) * W + col;
+  // rows the warp walks: its owning lanes' longest strip
+  const int hw = __reduce_max_sync(kFull, own ? h : 0);
+
   // slots outside the cloth never move: P and prev pass through, V is 0.
   // CTA r copies lattice rows [r * Hs, (r + 1) * Hs)
   {
     const int Hs = (H + C - 1) / C;
-    const int y0 = rank * Hs;
-    const int n = max(0, min(H, y0 + Hs) - y0) * W;
+    const int ya = rank * Hs;
+    const int n = max(0, min(H, ya + Hs) - ya) * W;
     for (int i = t; i < n; i += kThreads) {
-      const int y = y0 + i / W, x = i - (i / W) * W;
+      const int y = ya + i / W, x = i - (i / W) * W;
       if (inside(y, x, dimy, dimx)) continue;
       const int g = y * W + x;
       for (int c = 0; c < 3; ++c) {
-        const float p = P[o3 + c * HW + g];
-        P_out[o3 + c * HW + g] = p;
-        prev_out[o3 + c * HW + g] = p;
+        const float v = P[o3 + c * HW + g];
+        P_out[o3 + c * HW + g] = v;
+        prev_out[o3 + c * HW + g] = v;
         V_out[o3 + c * HW + g] = 0.f;
       }
     }
   }
 
-  // inverse masses of rows [s - 2, e + 2) into X1's first plane (free
-  // until the first iteration), 0 outside the cloth
-  float* wt = X1;
+  // both position buffers and the coefficient planes start at 0
+  {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = t; i < 2 * plane; i += kThreads) smem[i] = zero;
+    for (int i = t; i < 6 * qplane; i += kThreads) Q[i] = 0.f;
+  }
+  __syncthreads();
+  // inverse masses of rows [s - 2, e + 2) into both buffers (constant over
+  // the launch), positions of the owned rows into X0
   {
     const int n = (e - s + 4) * dimx;
-    for (int i = t; i < n; i += kThreads) {
-      const int lr = i / dimx, x = i - (i / dimx) * dimx;
+    for (int k = t; k < n; k += kThreads) {
+      const int lr = k / dimx, x = k - (k / dimx) * dimx;
       const int g = s - 2 + lr;
-      wt[lr * W + x] = inside(g, x, dimy, dimx)
-                           ? w[(size_t)b * HW + g * W + x] : 0.f;
+      if (!inside(g, x, dimy, dimx)) continue;
+      const int i = lr * W + x;
+      const float wi = w[(size_t)b * HW + g * W + x];
+      X0[i].w = wi;
+      X1[i].w = wi;
+      if (g >= s && g < e) {
+        const int gi = i + base;
+        X0[i].x = P[o3 + gi];
+        X0[i].y = P[o3 + HW + gi];
+        X0[i].z = P[o3 + 2 * HW + gi];
+      }
     }
   }
   __syncthreads();
@@ -273,137 +356,202 @@ substeps_kernel(const float* __restrict__ params, const float* __restrict__ P,
   {
     const int r0 = max(0, s - 2);
     const int n = (e - r0) * dimx;
-    for (int i = t; i < n; i += kThreads) {
-      const int g = r0 + i / dimx, x = i - (i / dimx) * dimx;
-      const int si = (g - s + 2) * W + x;
+    for (int k = t; k < n; k += kThreads) {
+      const int g = r0 + k / dimx, x = k - (k / dimx) * dimx;
+      const int i = (g - s + 2) * W + x;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
+      for (int c = 0; c < 6; ++c) {
         int dy, dx, cls;
         float rest_k;
-        stencil(k, dy, dx, rest_k, cls);
+        stencil(c, dy, dx, rest_k, cls);
         if (!inside(g + dy, x + dx, dimy, dimx)) continue;
-        const float denom = wt[si] + wt[si + dy * W + dx];
-        if (denom > 0.f) Q[k * qplane + si] = q.stiff[cls] / (denom + kEps);
+        const float denom = X0[i].w + X0[i + dy * W + dx].w;
+        if (denom > 0.f) Q[6 * i + c] = q.stiff[cls] / (denom + kEps);
       }
     }
   }
-  // owned slots: metadata, relaxation factor, w; positions into X0
-  for (int l = t; l < n_own; l += kThreads) {
-    const int lo = l / dimx, x = l - (l / dimx) * dimx;
+  // relaxation factors of the owned slots: relax / live constraints
+  for (int k = t; k < n_own; k += kThreads) {
+    const int lo = k / dimx, x = k - (k / dimx) * dimx;
     const int g = s + lo;
-    const int si = (lo + 2) * W + x;
-    const float wi = wt[si];
-    unsigned m = 0u;
+    const int i = (lo + 2) * W + x;
+    const float wi = X0[i].w;
     float count = 0.f;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
+    for (int c = 0; c < 6; ++c) {
       int dy, dx, cls;
       float rest_k;
-      stencil(k, dy, dx, rest_k, cls);
+      stencil(c, dy, dx, rest_k, cls);
       const int off = dy * W + dx;
-      if (inside(g + dy, x + dx, dimy, dimx) && wi + wt[si + off] > 0.f) {
-        m |= 1u << (2 * k);
+      if (inside(g + dy, x + dx, dimy, dimx) && wi + X0[i + off].w > 0.f)
         count += 1.f;
-      }
-      if (inside(g - dy, x - dx, dimy, dimx) && wt[si - off] + wi > 0.f) {
-        m |= 1u << (2 * k + 1);
+      if (inside(g - dy, x - dx, dimy, dimx) && X0[i - off].w + wi > 0.f)
         count += 1.f;
-      }
     }
-    if (wi > 0.f) m |= kMoving;
-    if (lo < 2 && rank > 0) m |= kHaloUp;
-    if (lo >= rows - 2 && e < dimy) m |= kHaloDown;
-    float* rec = own + kRec * l;
-    rec[kMeta] = __uint_as_float(m | ((unsigned)si << kIndexShift));
-    rec[kInvc] = q.relax / fmaxf(count, 1.f);
-    rec[kW] = wi;
-    const int gi = si + base;
-    X0[si] = P[o3 + gi];
-    X0[plane + si] = P[o3 + HW + gi];
-    X0[2 * plane + si] = P[o3 + 2 * HW + gi];
+    invc[i - 2 * W] = q.relax / fmaxf(count, 1.f);
   }
   // every CTA of the cluster runs (distributed shared memory may be
-  // touched from here on) and has read its inverse masses from X1
+  // touched from here on) and has set up its buffers
   cluster.sync();
-  float* up0 = cluster.map_shared_rank(smem, max(rank - 1, 0));
-  float* down0 = cluster.map_shared_rank(smem, min(rank + 1, C - 1));
+  const unsigned up0 = cluster_address(smem, max(rank - 1, 0));
+  const unsigned down0 = cluster_address(smem, min(rank + 1, C - 1));
 
   const float dt = q.dt;
   const float damp = fmaxf(0.f, 1.f - q.damping * dt);
+  const float rest1 = q.spacing, rest2 = 2.0f * q.spacing;
+  const float restd = kSqrt2 * q.spacing;
+  // the owned rows of this thread, band index i0 + j * W: rows j < n_up
+  // go to the upper neighbour's halo, rows j >= j_down to the lower's
+  const int hown = own ? h : 0;
+  const int n_up = rank > 0 ? s + 2 - y0 : 0;
+  const int j_down = e < dimy ? e - 2 - y0 : kMaxStrip;
   float* V_o = V_out + o3;
+  float* Pr = prev_out + o3;  // the substep-start positions
   int F = 0;  // the buffer holding the current positions
   for (int sub = 0; sub < n_sub; ++sub) {
     // integrate: gravity, damping, predict into X0
     const float* Vs = sub == 0 ? V + o3 : V_o;
-    const float* Fb = F ? X1 : X0;
-    for (int l = t; l < n_own; l += kThreads) {
-      float* rec = own + kRec * l;
-      const unsigned m = __float_as_uint(rec[kMeta]);
-      const int si = (int)(m >> kIndexShift);
-      const int gi = si + base;
-      const bool moving = (m & kMoving) != 0u;
+    const float4* Fb = F ? X1 : X0;
+    for (int j = 0; j < hown; ++j) {
+      const int i = i0 + j * W;
+      const int gi = i + base;
+      const float4 c = Fb[i];
+      const bool moving = c.w > 0.f;
       float vx = Vs[gi], vy = Vs[HW + gi] + dt * q.gravity_y,
             vz = Vs[2 * HW + gi];
       vx *= damp; vy *= damp; vz *= damp;
       if (!moving) { vx = 0.f; vy = 0.f; vz = 0.f; }
-      const float px = Fb[si], py = Fb[plane + si], pz = Fb[2 * plane + si];
       V_o[gi] = vx; V_o[HW + gi] = vy; V_o[2 * HW + gi] = vz;
-      rec[kPr] = px; rec[kPr + 1] = py; rec[kPr + 2] = pz;
-      put(X0, up0, down0, plane, si, shift, m,
-          moving ? px + dt * vx : px, moving ? py + dt * vy : py,
-          moving ? pz + dt * vz : pz);
+      Pr[gi] = c.x;
+      Pr[HW + gi] = c.y;
+      Pr[2 * HW + gi] = c.z;
+      pr[i - 2 * W] = make_float2(c.x, c.z);
+      put(X0, up0, down0, i, shift, j < n_up, j >= j_down,
+          make_float4(moving ? c.x + dt * vx : c.x,
+                      moving ? c.y + dt * vy : c.y,
+                      moving ? c.z + dt * vz : c.z, c.w));
     }
     cluster.sync();
 
-    // springs + plane, Chebyshev-accelerated after the warm-up when cheb
+    // springs + plane, Chebyshev-accelerated after the warm-up when cheb;
+    // an iteration ends with the cluster arrive and the next one starts
+    // with the wait (which also orders this CTA's own warps)
     float omega = 1.f;
     for (int it = 0; it < iterations; ++it) {
+      if (it > 0) cluster_wait();
       const bool accel = cheb && it >= kChebDelay;
       if (cheb && it == kChebDelay) omega = 2.f / (2.f - q.rho2);
       else if (cheb && it > kChebDelay) omega = 4.f / (4.f - q.rho2 * omega);
-      const float* A = (it & 1) ? X1 : X0;
-      float* Bb = (it & 1) ? X0 : X1;
-      float* up = Bb - smem + up0;
-      float* down = Bb - smem + down0;
-#pragma unroll 1
-      for (int l = t; l < n_own; l += kThreads) {
-        const float* rec = own + kRec * l;
-        const float2 r0 = *reinterpret_cast<const float2*>(rec);
-        const float2 r1 = *reinterpret_cast<const float2*>(rec + 2);
-        const unsigned m = __float_as_uint(r0.x);
-        const int si = (int)(m >> kIndexShift);
-        float jx, jy, jz;
-        jacobi(A, Q, plane, qplane, W, m, si, r1.x, r0.y, q, jx, jy, jz);
-        if (accel) {
-          const float cx = Bb[si], cy = Bb[plane + si],
-                      cz = Bb[2 * plane + si];
-          jx = omega * (jx - cx) + cx;
-          jy = omega * (jy - cy) + cy;
-          jz = omega * (jz - cz) + cz;
+      const float4* A = (it & 1) ? X1 : X0;
+      float4* Bb = (it & 1) ? X0 : X1;
+      const unsigned up = up0 + 16u * (unsigned)(Bb - smem);
+      const unsigned down = down0 + 16u * (unsigned)(Bb - smem);
+      if (hw > 0) {
+        // the springs from rows y0 - 2 and y0 - 1 that end in this strip:
+        // the neighbour-role terms of its first two rows
+        float3 d;
+        const float4 pa = A[i0 - 2 * W], pb = A[i0 - W];
+        float4 p0 = A[i0], p1 = A[i0 + W];
+        float4 r0 = A[i0 + 1];
+        const float4 l0 = A[i0 - 1];
+        const float* Qb = Q + 6 * (i0 - W);
+        float ee = spring(pa, p0, rest2, d);
+        float3 v3a = term(p0.w * Q[6 * (i0 - 2 * W) + 3], ee, d);
+        ee = spring(pb, p0, rest1, d);
+        float3 v1 = term(p0.w * Qb[1], ee, d);
+        ee = spring(pb, p1, rest2, d);
+        float3 v3b = term(p1.w * Qb[3], ee, d);
+        ee = spring(pb, r0, restd, d);
+        float3 in4 = from_below(term(r0.w * Qb[4], ee, d), 1);
+        ee = spring(pb, l0, restd, d);
+        float3 in5 = from_above(term(l0.w * Qb[5], ee, d), 1);
+#pragma unroll
+        for (int j = 0; j < kMaxStrip; ++j) {
+          if (j >= hw) break;
+          // a lane past its strip's end recomputes its last row: its
+          // terms reach only lanes past their ends too.  (jj hides j from
+          // the compiler, which would keep the rows' indices live across
+          // the iteration loop and spill them)
+          int jj = j;
+          asm volatile("" : "+r"(jj));
+          const int i = i0 + min(jj, h - 1) * W;
+          const float2* Qi = reinterpret_cast<const float2*>(Q + 6 * i);
+          const float2 q01 = Qi[0], q23 = Qi[1], q45 = Qi[2];
+          const float4 p2 = A[i + 2 * W];   // (y + 2, x)
+          const float4 r1 = A[i + W + 1];   // (y + 1, x + 1)
+          const float4 q0 = A[i + 2];       // (y, x + 2)
+          const float4 l1 = A[i + W - 1];   // (y + 1, x - 1)
+          float3 acc = make_float3(0.f, 0.f, 0.f);
+          // class 0: (y, x) -> (y, x + 1), from lane - 1
+          ee = spring(p0, r0, rest1, d);
+          plus(acc, term(p0.w * q01.x, ee, d));
+          minus(acc, from_below(term(r0.w * q01.x, ee, d), 1));
+          // class 1: (y, x) -> (y + 1, x), this thread's row above
+          ee = spring(p0, p1, rest1, d);
+          plus(acc, term(p0.w * q01.y, ee, d));
+          minus(acc, v1);
+          v1 = term(p1.w * q01.y, ee, d);
+          // class 2: (y, x) -> (y, x + 2), from lane - 2
+          ee = spring(p0, q0, rest2, d);
+          plus(acc, term(p0.w * q23.x, ee, d));
+          minus(acc, from_below(term(q0.w * q23.x, ee, d), 2));
+          // class 3: (y, x) -> (y + 2, x), this thread's row 2 above
+          ee = spring(p0, p2, rest2, d);
+          plus(acc, term(p0.w * q23.y, ee, d));
+          minus(acc, v3a);
+          v3a = v3b;
+          v3b = term(p2.w * q23.y, ee, d);
+          // class 4: (y, x) -> (y + 1, x + 1), lane - 1's row above
+          ee = spring(p0, r1, restd, d);
+          plus(acc, term(p0.w * q45.x, ee, d));
+          minus(acc, in4);
+          in4 = from_below(term(r1.w * q45.x, ee, d), 1);
+          // class 5: (y, x) -> (y + 1, x - 1), lane + 1's row above
+          ee = spring(p0, l1, restd, d);
+          plus(acc, term(p0.w * q45.y, ee, d));
+          minus(acc, in5);
+          in5 = from_above(term(l1.w * q45.y, ee, d), 1);
+
+          const float ic = invc[i - 2 * W];
+          float jx = p0.x + ic * acc.x;
+          float jy = p0.y + ic * acc.y;
+          float jz = p0.z + ic * acc.z;
+          if (accel) {
+            const float4 c = Bb[i];
+            jx = omega * (jx - c.x) + c.x;
+            jy = omega * (jy - c.y) + c.y;
+            jz = omega * (jz - c.z) + c.z;
+          }
+          const float2 r = pr[i - 2 * W];
+          ground(jx, jy, jz, r.x, r.y, p0.w > 0.f, q);
+          if (j < hown)
+            put(Bb, up, down, i, shift, j < n_up, j >= j_down,
+                make_float4(jx, jy, jz, p0.w));
+          p0 = p1;
+          p1 = p2;
+          r0 = r1;
         }
-        ground(jx, jy, jz, r1.y, rec[kPr + 2], (m & kMoving) != 0u, q);
-        put(Bb, up, down, plane, si, shift, m, jx, jy, jz);
       }
-      cluster.sync();
+      cluster_arrive();
     }
+    if (iterations > 0) cluster_wait();
     F = iterations & 1;
 
     // velocity finalize (speed-up-only clamp), then the picker push; only
     // this thread's own slots are read and written until the next barrier
     const bool push = sub < n_sub - 1 || picker_last;
-    float* Pb = F ? X1 : X0;
-    for (int l = t; l < n_own; l += kThreads) {
-      const float* rec = own + kRec * l;
-      const unsigned m = __float_as_uint(rec[kMeta]);
-      const int si = (int)(m >> kIndexShift);
-      const int gi = si + base;
-      const bool moving = (m & kMoving) != 0u;
-      float px = Pb[si], py = Pb[plane + si], pz = Pb[2 * plane + si];
+    float4* Pb = F ? X1 : X0;
+    for (int j = 0; j < hown; ++j) {
+      const int i = i0 + j * W;
+      const int gi = i + base;
+      const float4 c = Pb[i];
+      const bool moving = c.w > 0.f;
+      float px = c.x, py = c.y, pz = c.z;
       if (moving) {
         const float vx = V_o[gi], vy = V_o[HW + gi], vz = V_o[2 * HW + gi];
-        const float nvx = (px - rec[kPr]) / dt;
-        const float nvy = (py - rec[kPr + 1]) / dt;
-        const float nvz = (pz - rec[kPr + 2]) / dt;
+        const float nvx = (px - Pr[gi]) / dt;
+        const float nvy = (py - Pr[HW + gi]) / dt;
+        const float nvz = (pz - Pr[2 * HW + gi]) / dt;
         const float d0 = nvx - vx, d1 = nvy - vy, d2 = nvz - vz;
         const float r = rsqrtf(d0 * d0 + d1 * d1 + d2 * d2 + kEps);
         const bool speeding =
@@ -424,26 +572,23 @@ substeps_kernel(const float* __restrict__ params, const float* __restrict__ P,
           const float pu = (pen > 0.f && moving) ? pen * r : 0.f;
           px += d0 * pu; py += d1 * pu; pz += d2 * pu;
         }
-        Pb[si] = px; Pb[plane + si] = py; Pb[2 * plane + si] = pz;
+        Pb[i] = make_float4(px, py, pz, c.w);
       }
     }
     // the next integrate reads and writes this thread's own slots and
     // writes neighbours' halos, which nobody reads before its barrier
   }
 
-  const float* Pb = F ? X1 : X0;
-  for (int l = t; l < n_own; l += kThreads) {
-    const float* rec = own + kRec * l;
-    const int si = (int)(__float_as_uint(rec[kMeta]) >> kIndexShift);
-    const int gi = si + base;
-    P_out[o3 + gi] = Pb[si];
-    P_out[o3 + HW + gi] = Pb[plane + si];
-    P_out[o3 + 2 * HW + gi] = Pb[2 * plane + si];
-    prev_out[o3 + gi] = rec[kPr];
-    prev_out[o3 + HW + gi] = rec[kPr + 1];
-    prev_out[o3 + 2 * HW + gi] = rec[kPr + 2];
+  const float4* Pb = F ? X1 : X0;
+  for (int j = 0; j < hown; ++j) {
+    const int i = i0 + j * W;
+    const int gi = i + base;
+    const float4 c = Pb[i];
+    P_out[o3 + gi] = c.x;
+    P_out[o3 + HW + gi] = c.y;
+    P_out[o3 + 2 * HW + gi] = c.z;
   }
-  // no CTA touches another's shared memory after the last cluster.sync
+  // no CTA touches another's shared memory after the last cluster wait
 }
 
 cudaLaunchConfig_t launch_config(int B, int smem, cudaLaunchAttribute* attr,
@@ -480,8 +625,8 @@ extern "C" int flingbot_substeps(const void* params, const void* P,
                                  const void* V, const void* w, void* P_out,
                                  void* V_out, void* prev_out, int B, int H,
                                  int W, int n_sub, int iterations, int cheb,
-                                 int picker_last, int band, int smem,
-                                 void* stream) {
+                                 int picker_last, int band, int strip,
+                                 int smem, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       substeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -491,7 +636,7 @@ extern "C" int flingbot_substeps(const void* params, const void* P,
   e = cudaLaunchKernelEx(&cfg, substeps_kernel, (const float*)params,
                          (const float*)P, (const float*)V, (const float*)w,
                          (float*)P_out, (float*)V_out, (float*)prev_out, H, W,
-                         n_sub, iterations, cheb, picker_last, band);
+                         n_sub, iterations, cheb, picker_last, band, strip);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

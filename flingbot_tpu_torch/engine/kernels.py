@@ -65,8 +65,14 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # substeps: one env across a cluster of SUBSTEPS_CLUSTER CTAs, each owning
 # a band of the env's rows; kCluster of csrc/substeps.cu, which launches
 # them (8, two CTAs per SM, ran faster than 4 at the rect path's shapes on
-# an H100: PERF.md)
+# an H100: PERF.md).  In a CTA, SUBSTEPS_WARPS warps of which lanes 2..30
+# (SUBSTEPS_WARP_COLUMNS) own a column of a strip each; a strip is at most
+# SUBSTEPS_MAX_STRIP rows (kThreads / 32, kOwnLanes, kMaxStrip of the
+# source)
 SUBSTEPS_CLUSTER = 8
+SUBSTEPS_WARPS = 14
+SUBSTEPS_WARP_COLUMNS = 29
+SUBSTEPS_MAX_STRIP = 6
 # contacts: owned slots per tile; 512 gives the 16-shirt path 192 blocks
 CONTACT_TILE = 512
 
@@ -89,7 +95,7 @@ def build():
     i = ctypes.c_int
     sub, con = libs["substeps"], libs["contacts"]
     app, srt = libs["contact_apply"], libs["contact_sort"]
-    sub.flingbot_substeps.argtypes = [p] * 7 + [i] * 9 + [p]
+    sub.flingbot_substeps.argtypes = [p] * 7 + [i] * 10 + [p]
     sub.flingbot_substeps_max_clusters.argtypes = [i, p]
     con.flingbot_contacts.argtypes = [p] * 14 + [i] * 8 + [p]
     app.flingbot_contact_apply.argtypes = [p] * 15 + [i] * 2 + [p]
@@ -137,17 +143,51 @@ def _launch(lib, fn, args, device):
 # --------------------------------------------------------------------------
 
 def substeps_band(H: int, W: int):
-    """(band, smem bytes) of the substeps kernel on an H x W lattice split
-    over SUBSTEPS_CLUSTER CTAs: band = the most rows one CTA owns (an env
-    of dimy rows gives each CTA max(2, ceil(dimy / SUBSTEPS_CLUSTER)); at
-    least 2, the stencil's reach, so every halo row has one owner).  Each
-    CTA holds two ping-pong position buffers (3 planes each) over band + 4
-    rows (a 2-row halo above and below), the 6 per-class spring
-    coefficients over band + 2 rows (the constraint starts that its slots
-    read), and 6 words for each owned slot: its metadata, relaxation
-    factor, inverse mass and substep-start position."""
+    """(band, strip, smem bytes) of the substeps kernel on an H x W
+    lattice split over SUBSTEPS_CLUSTER CTAs.  band = the most rows one
+    CTA owns (an env of dimy rows gives each CTA max(2, ceil(dimy /
+    SUBSTEPS_CLUSTER)); at least 2, the stencil's reach, so every halo row
+    has one owner).  strip = the most rows one thread walks: the fewest
+    that let one column of each of the band's strips fit in the CTA's
+    SUBSTEPS_WARPS x SUBSTEPS_WARP_COLUMNS owning lanes (0 where a row of W
+    does not fit); a narrower or shorter env takes the fewest rows that
+    fit its own columns.  Each CTA holds two ping-pong buffers of float4
+    (x, y, z, w) over band + 4 rows (a 2-row halo above and below), the 6
+    per-class spring coefficients over band + 2 rows (the constraint
+    starts that its slots read), and 3 words for each owned slot: its
+    substep-start x and z and its relaxation factor."""
     band = max(2, -(-H // SUBSTEPS_CLUSTER))
-    return band, 4 * W * (6 * (band + 4) + 6 * (band + 2) + 6 * band)
+    strips = SUBSTEPS_WARPS * SUBSTEPS_WARP_COLUMNS // W
+    strip = -(-band // strips) if strips else 0
+    return band, strip, 4 * W * (8 * (band + 4) + 6 * (band + 2) + 3 * band)
+
+
+def substeps_evals_per_spring(dims, H: int, W: int) -> float:
+    """Spring evaluations the substeps kernel makes in one Jacobi
+    iteration over the envs of `dims` ((dimx, dimy) each) on an H x W
+    lattice, per spring of those cloths: every lane of a warp that owns a
+    position evaluates 6 springs a row for each of the warp's rows (its
+    owning lanes' longest strip) and 5 more from the 2 rows above its
+    strip.  1.0 would evaluate each spring once."""
+    _, strip, _ = substeps_band(H, W)
+    C, cols = SUBSTEPS_CLUSTER, SUBSTEPS_WARP_COLUMNS
+    evals = springs = 0
+    for dimx, dimy in dims:
+        rows = max(2, -(-dimy // C))
+        fit = SUBSTEPS_WARPS * cols // dimx  # strips of the env a CTA holds
+        for rank in range(C):
+            s = min(dimy, rank * rows)
+            e = min(dimy, s + rows)
+            r = min(strip, max(1, -(-(e - s) // fit)))
+            total = -(-(e - s) // r) * dimx
+            for p0 in range(0, total, cols):
+                hw = max(min(r, e - s - (p // dimx) * r)
+                         for p in range(p0, min(p0 + cols, total)))
+                evals += 32 * (6 * hw + 5)
+        springs += sum(max(0, dimx - dx) * max(0, dimy - dy)
+                       for dy, dx in ((0, 1), (1, 0), (0, 2), (2, 0), (1, 1),
+                                      (1, 1)))
+    return evals / springs
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,9 +221,8 @@ def substeps(pvec, P, V, w, *, n_sub: int, iterations: int,
     _check(P, "P", (B, 3, H, W))
     _check(V, "V", (B, 3, H, W))
     _check(w, "w", (B, H, W))
-    band, smem = substeps_band(H, W)
-    # the slot metadata word keeps a band slot's index in 16 bits
-    if smem > _SMEM_LIMIT or (band + 4) * W >= 1 << 16:
+    band, strip, smem = substeps_band(H, W)
+    if smem > _SMEM_LIMIT or not 0 < strip <= SUBSTEPS_MAX_STRIP:
         raise ValueError(f"lattice {H}x{W} exceeds the kernel's capacity "
                          f"at {SUBSTEPS_CLUSTER} CTAs per env")
     dev = P.device.index if P.device.index is not None else \
@@ -200,7 +239,7 @@ def substeps(pvec, P, V, w, *, n_sub: int, iterations: int,
         pvec.data_ptr(), P.data_ptr(), V.data_ptr(), w.data_ptr(),
         out_P.data_ptr(), out_V.data_ptr(), out_prev.data_ptr(), B, H, W,
         int(n_sub), int(iterations), int(bool(cheb)),
-        int(bool(picker_last)), band, smem], P.device)
+        int(bool(picker_last)), band, strip, smem], P.device)
     LAUNCHES["substeps"] += 1
     return out_P, out_V, out_prev
 

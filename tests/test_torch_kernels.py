@@ -620,6 +620,27 @@ def test_cuda_mesh_contacts_match_plain(cuda_device):
         assert float((a - b).abs().max()) <= 2e-6
 
 
+def _cloths(dims, H, device, seed=0):
+    """pvec, P, V, w of len(dims) cloths of (dimx, dimy) on an H x H
+    lattice: a flat grid raised 0.1 m with 1 mm noise, 1 cm/s velocities,
+    uniform inverse masses but for a pinned corner, picker 0 touching it."""
+    rng = np.random.default_rng(seed)
+    B = len(dims)
+    pos = grid_positions(H, H, lower=(0.0, 0.1, 0.0)).reshape(H, H, 3)
+    P = np.moveaxis(pos[None] + rng.normal(0, 1e-3, (B, H, H, 3)), -1, 1)
+    V = rng.normal(0, 1e-2, (B, 3, H, H))
+    w = np.full((B, H, H), H * H / 0.5)
+    w[:, 0, 0] = 0.0
+    topo = build_grid_topology([d[0] for d in dims], [d[1] for d in dims],
+                               max_dimx=H, max_dimy=H, device=device)
+    picker = np.stack([P[:, :, 0, 0] + [0.0, 0.002, 0.0],
+                       np.full((B, 3), -10.0)], 1)
+    picker = torch.tensor(picker, dtype=torch.float32, device=device)
+    pvec = pack_sub_params(SolverParams(), topo, picker, 0.02, 0.0025)
+    return [pvec] + [torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                  device=device) for a in (P, V, w)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     dict(n_sub=2, picker_last=False),  # the fused launch
@@ -627,24 +648,60 @@ def test_cuda_mesh_contacts_match_plain(cuda_device):
     dict(n_sub=4, cheb=False, picker_last=True),  # jacobi, no contacts
     dict(n_sub=4, picker_last=True),  # no self-collision
 ])
-def test_cuda_substeps_configurations(cuda_device, kw):
+@pytest.mark.parametrize("H,dims", [
+    # full, partial and empty bands (5 rows over 8 CTAs: 2, 2, 1, 0, ...)
+    (DIM, [(16, 16), (12, 14), (7, 5)]),
+    # a band of 13 rows in strips of 5, 5, 3 (narrower cloths take
+    # shorter strips), laid end to end across warps mid-row (104, 64, 33
+    # columns); a cloth narrower than a warp's 29 columns, one of 2 rows
+    # a band
+    (104, [(104, 104), (64, 97), (33, 71), (20, 104), (104, 9)]),
+    # the large set's lattice: strips of 6 rows, one CTA an SM
+    (128, [(128, 128), (113, 127)]),
+])
+def test_cuda_substeps_configurations(cuda_device, kw, H, dims):
     """Each launch configuration of csrc/substeps.cu against its plain
-    version on three envs whose dims (16x16, 12x14, 7x5) give full,
-    partial and empty bands (5 rows over 8 CTAs: 2, 2, 1, 0, ...):
-    the substeps tolerances, in effect bit-equality under -fmad=false."""
-    P, V, w = _lattice()
-    topo = build_grid_topology([16, 12, 7], [16, 14, 5], max_dimx=DIM,
-                               max_dimy=DIM, device=cuda_device)
-    picker = torch.tensor([[[0.04, 0.1, 0.04], [-10.0] * 3]] * 3,
-                          device=cuda_device)
-    pvec = pack_sub_params(SolverParams(), topo, picker, 0.02, 0.0025)
-    args = [torch.tensor(np.stack([a] * 3), device=cuda_device)
-            for a in (P, V, w)]
+    version on envs whose dims end bands, strips and warps at every
+    place the layout allows, on the 16, 104 and 128 lattices: the
+    substeps tolerances, in effect bit-equality under -fmad=false."""
+    pvec, *args = _cloths(dims, H, cuda_device)
     kw = dict(kw, iterations=16)
     out_k = kernels.substeps(pvec, *args, **kw)
     out_p = kernels.substeps_plain(pvec, *args, **kw)
     for a, b, tol in zip(out_k, out_p, (1e-5, 4e-3, 1e-5)):
         assert float((a - b).abs().max()) <= tol
+
+
+def test_substeps_band_geometry():
+    """The substeps kernel's layout at the lattices its callers launch:
+    the band, the strip height and the shared memory a CTA (all under a
+    Hopper block's limit; two CTAs an SM up to 104), and the spring
+    evaluations a spring of one Jacobi iteration, computed from the
+    layout: at the hard eval set's dims (rect-hard.physics) under 1.6,
+    where evaluating both ends of every spring at each slot made 2.04."""
+    want = {64: (8, 2, 46080), 100: (13, 4, 106000), 104: (13, 5, 110240),
+            128: (16, 6, 161792)}
+    for H, (band, strip, smem) in want.items():
+        assert kernels.substeps_band(H, H) == (band, strip, smem)
+        assert smem <= kernels._SMEM_LIMIT
+        assert -(-band // strip) * H <= (kernels.SUBSTEPS_WARPS
+                                         * kernels.SUBSTEPS_WARP_COLUMNS)
+    # two CTAs an SM at 104: an SM's 228 KB, 1 KB of it reserved a CTA
+    assert 2 * (kernels.substeps_band(104, 104)[2] + 1024) <= 233472
+    with np.load(os.path.join(ROOT, "data_r3/rect_eval_hard_100.npz")) as z:
+        dims = [tuple(int(v) for v in z[k]) for k in z.files
+                if k.endswith("/cloth_size")]
+    assert len(dims) == 100
+    share = kernels.substeps_evals_per_spring(dims, 104, 104)
+    assert 1.0 < share < 1.6
+    # one 104 x 104 cloth: 8 CTAs of 13 rows in strips of 5, 5, 3; of 11
+    # warps, 8 walk 5 rows and 3 walk 3, each with 5 springs from the 2
+    # rows above: 32 x (8 x 35 + 3 x 23) evaluations a CTA
+    springs = 2 * 104 * 103 + 2 * 104 * 102 + 2 * 103 * 103
+    assert kernels.substeps_evals_per_spring([(104, 104)], 104, 104) == \
+        8 * 32 * (8 * 35 + 3 * 23) / springs
+    # a lattice row wider than the CTA's owning lanes has no layout
+    assert kernels.substeps_band(600, 600)[1] == 0
 
 
 @pytest.mark.cuda
