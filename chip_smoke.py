@@ -171,12 +171,10 @@ import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+from portbench.workmodel import (
+    PEAK_BYTES, PEAK_F32_OPS, contacts_work, substeps_work)
 
-# f32 peak outside the tensor cores and HBM rate of one H100 SXM at 700 W
-# (NVIDIA data sheet)
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # tolerances of kernel vs plain version on the same inputs (see PERF.md).
 # Built without FMA contraction (engine/build.py, -fmad=false) and summing
@@ -304,49 +302,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 # --------------------------------------------------------------------------
-# work models for the bounds: operations and bytes this data needs
+# work models for the bounds: operations and bytes this data needs (those
+# of the two solver stages are the benchmark's, portbench/workmodel.py)
 # --------------------------------------------------------------------------
-
-def substeps_work(dims, H, W, n_sub, iterations, cheb=True):
-    """(bytes, f32 ops) of one substeps launch.  Per constraint per
-    iteration: difference 3, squared length 6, rsqrt 1, relaxation 2,
-    two scalings 2, two endpoint updates 12 (FMA = 2 ops) = 26; per
-    particle per iteration: count scaling 6, Chebyshev 9 (cheb only),
-    plane 15 = 30; per particle per substep: integrate 12, velocity clamp
-    25, two picker spheres 30 = 67.  Bytes: P, V, w, params read once; P,
-    V, prev written once."""
-    B = len(dims)
-    ops = 0
-    per_particle = 30 if cheb else 21
-    for dx, dy in dims:
-        n = dx * dy
-        cons = ((dx - 1) * dy + dx * (dy - 1) + (dx - 2) * dy + dx * (dy - 2)
-                + 2 * (dx - 1) * (dy - 1))
-        ops += n_sub * (iterations * (26 * cons + per_particle * n)
-                        + 67 * n)
-    nbytes = 4 * B * (3 * H * W * 2 + H * W + 21) + 4 * B * 3 * H * W * 3
-    return nbytes, ops
-
-
-def contacts_work(n_active, N, window, iterations, mesh=False):
-    """(bytes, f32 ops) of one contacts launch.  Per pair inside the
-    window per iteration ~66 ops (distance 10, penetration 3, friction
-    tangent 26, scale 6, two endpoint updates 12, count 2, masks 7); per
-    particle per iteration 22 (Jacobi average 7, plane 15).  The mesh
-    mode's rest-pose filter, once per pair per launch: rest distance^2 6,
-    rest_dist^2 1, compare 1 = 8.  Bytes: six coordinate arrays + packed
-    ids + params (+ three rest coordinate arrays) read once, three
-    written."""
-    B = len(n_active)
-    ops = 0
-    for n in n_active:
-        pairs = sum(max(0, n - k) for k in range(1, window + 1))
-        ops += iterations * (66 * pairs + 22 * n) + (8 * pairs if mesh
-                                                      else 0)
-    nbytes = (4 * B * N * (10 if mesh else 7) + 4 * B * 8
-              + 4 * B * N * 3)
-    return nbytes, ops
-
 
 def contact_apply_work(B, N):
     """(bytes, f32 ops) of one contact_apply launch over all B x N slots.
@@ -477,7 +435,7 @@ def synthetic_inputs(B, H, W, gen, device, full=False, lo=64, size=None):
     picker touching each, seeded velocities."""
     import torch
 
-    from flingbot_tpu_torch.engine.solver import pack_sub_params
+    from flingbot_tpu_torch.engine.kernels import pack_sub_params
     from flingbot_tpu_torch.engine.state import SolverParams
     from flingbot_tpu_torch.engine.topology import (
         build_grid_topology, lattice_valid)
@@ -682,7 +640,7 @@ def kernel_contacts(name, out_sub, w, valid, dims, err, *, window,
     _, srt = collisions.sort_particles(
         Pn.reshape(B, 3, -1), prev.reshape(B, 3, -1), w.reshape(B, -1),
         valid.reshape(B, -1), rest_dist=params.radius, lattice_w=W)
-    cp = collisions.contact_params(params, params.radius, B, Pn.device)
+    cp = kernels.contact_params(params, params.radius, B, Pn.device)
     kw = dict(window=window, iterations=iterations)
     out_k = kernels.contacts(cp, *srt, **kw)
     out_p = kernels.contacts_plain(cp, *srt, **kw)
@@ -914,7 +872,7 @@ def mesh_contacts_row(name, state, topo, err, device):
     _, srt = collisions.sort_particles(
         moved.positions, state.positions, w, state.active,
         rest_dist=params.radius, rest_positions=topo.rest_positions)
-    cp = collisions.contact_params(params, params.radius, B, device)
+    cp = kernels.contact_params(params, params.radius, B, device)
     kw = dict(rests=srt[7:], window=12, iterations=4)
     out_k = kernels.contacts(cp, *srt[:7], **kw)
     out_p = kernels.contacts_plain(cp, *srt[:7], **kw)

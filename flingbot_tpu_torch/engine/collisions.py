@@ -28,27 +28,13 @@ All arrays are batched: positions (B, 3, N), per-particle (B, N).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from flingbot_tpu_torch.engine import kernels
+from flingbot_tpu_torch.engine.constraints import EPS, dot3, solve_plane
 from flingbot_tpu_torch.engine.kernels import INT32_BIG, morton_code
 from flingbot_tpu_torch.engine.state import SolverParams
 from flingbot_tpu_torch.utils import trace
-
-_EPS = 1e-9
-
-
-def contact_params(params: SolverParams, rest_dist: float, batch: int,
-                   device) -> torch.Tensor:
-    """(B, 8) f32 contact kernel parameters (pallas_kernels.py:360-361)."""
-    f = np.float32
-    row = trace.upload(
-        [f(rest_dist), 1.0, f(params.particle_friction)
-         * f(params.dynamic_friction), f(params.dynamic_friction),
-         f(params.collision_distance), 0.0, 0.0, 0.0],
-        dtype=torch.float32, device=device)
-    return row.expand(batch, -1).contiguous()
 
 
 def sort_particles(P, prev, w, active, *, rest_dist, lattice_w=None,
@@ -100,7 +86,7 @@ def sort_and_project(P, prev, w, active, params: SolverParams, *,
                                     rest_positions=rest_positions,
                                     backend=backend)
     with trace.span("solver.contacts.project"):
-        cp = contact_params(params, rest_dist, P.shape[0], P.device)
+        cp = kernels.contact_params(params, rest_dist, P.shape[0], P.device)
         project = kernels.contacts if backend == "pallas" \
             else kernels.contacts_plain
         out = project(cp, *srt[:7], rests=srt[7:] or None, window=window,
@@ -166,21 +152,6 @@ def _take(a, idx):
     return torch.gather(a, -1, i.expand(a.shape[:-1] + idx.shape[-1:]))
 
 
-def solve_plane(P, prev, coldist, mu, moving):
-    """Ground plane y >= collision_distance with PBD Coulomb friction
-    (solve_plane, solver.py:329).  P, prev (B, 3, ...); moving (B, ...)."""
-    pen = coldist - P[:, 1]
-    contact = (pen > 0) & moving
-    dy = torch.where(contact, pen, 0.0)
-    dx_ = P[:, 0] - prev[:, 0]
-    dz_ = P[:, 2] - prev[:, 2]
-    t_norm = torch.sqrt(dx_ * dx_ + dz_ * dz_ + _EPS)
-    scale = torch.clamp(mu * torch.clamp(pen, min=0.0) / t_norm, max=1.0)
-    f = torch.where(contact, scale, 0.0)
-    return torch.stack([P[:, 0] - dx_ * f, P[:, 1] + dy, P[:, 2] - dz_ * f],
-                       1)
-
-
 def _rest_filter_ok(ids_a, ids_b, rest_a, rest_b, lattice_w, rest_dist):
     """Pairs the SelfCollideFilter keeps: lattice ids more than one apart
     on an axis (grid), or rest positions at least rest_dist apart
@@ -191,8 +162,7 @@ def _rest_filter_ok(ids_a, ids_b, rest_a, rest_b, lattice_w, rest_dist):
                & (torch.abs(ids_a % lattice_w - ids_b % lattice_w) <= 1))
     if rest_a is not None:
         rd = rest_a - rest_b
-        ok = ok & ((rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1]
-                    + rd[:, 2] * rd[:, 2]) >= rest_dist * rest_dist)
+        ok = ok & (dot3(rd, rd) >= rest_dist * rest_dist)
     return ok
 
 
@@ -232,23 +202,20 @@ def solve_contacts_sweep(P, w, moving, perm, inv_perm, params: SolverParams,
         count = torch.zeros_like(ws)
         for k, ok0, wn, dprev in static:
             d = Ps - torch.roll(Ps, -k, 2)
-            dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                              + d[:, 2] * d[:, 2] + _EPS)
+            dist = torch.sqrt(dot3(d, d) + EPS)
             pen = rest_dist - dist
             wsum = ws + wn
             ok = ok0 & (pen > 0) & (wsum > 0)
-            s = torch.where(ok, pen / ((wsum + _EPS) * dist), 0.0)
+            s = torch.where(ok, pen / ((wsum + EPS) * dist), 0.0)
             delta = delta + (ws * s)[:, None] * d
             count = count + ok.to(count.dtype)
             rel = d - dprev
             nhat = d / dist[:, None]
-            rel_n = (rel[:, 0] * nhat[:, 0] + rel[:, 1] * nhat[:, 1]
-                     + rel[:, 2] * nhat[:, 2])
+            rel_n = dot3(rel, nhat)
             t = rel - rel_n[:, None] * nhat
-            t_norm = torch.sqrt(t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
-                                + t[:, 2] * t[:, 2] + _EPS)
+            t_norm = torch.sqrt(dot3(t, t) + EPS)
             fr = torch.clamp(mu_p * pen / t_norm, max=1.0)
-            fscale = torch.where(ok, (ws / (wsum + _EPS)) * fr, 0.0)
+            fscale = torch.where(ok, (ws / (wsum + EPS)) * fr, 0.0)
             delta = delta - fscale[:, None] * t
         Ps = Ps + torch.where(ms[:, None], delta / torch.clamp(
             count, min=1.0)[:, None], 0.0)
@@ -323,20 +290,17 @@ def solve_contacts_block(P, w, moving, perm, inv_perm, params: SolverParams,
     for _ in range(iterations):
         Dx = Y - prev_s
         d = Y[..., None] - _take(Y, ctx.j).view(B, 3, n, -1)
-        dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                          + d[:, 2] * d[:, 2] + _EPS)
+        dist = torch.sqrt(dot3(d, d) + EPS)
         pen = rest_dist - dist
         ok = ctx.static_ok & (pen > 0) & (wsum > 0)
-        s = torch.where(ok, pen / ((wsum + _EPS) * dist), 0.0)
+        s = torch.where(ok, pen / ((wsum + EPS) * dist), 0.0)
         r = Dx[..., None] - _take(Dx, ctx.j).view(B, 3, n, -1)
         inv_d = 1.0 / dist
-        rel_n = (r[:, 0] * d[:, 0] + r[:, 1] * d[:, 1]
-                 + r[:, 2] * d[:, 2]) * inv_d * inv_d
+        rel_n = dot3(r, d) * inv_d * inv_d
         t = r - rel_n[:, None] * d
-        t_norm = torch.sqrt(t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
-                            + t[:, 2] * t[:, 2] + _EPS)
+        t_norm = torch.sqrt(dot3(t, t) + EPS)
         fr = torch.clamp(mu_p * pen / t_norm, max=1.0)
-        fsc = torch.where(ok, (ws / (wsum + _EPS)) * fr, 0.0)
+        fsc = torch.where(ok, (ws / (wsum + EPS)) * fr, 0.0)
         g = (ws * s)[:, None] * d - fsc[:, None] * t
         delta = g[..., :h].sum(-1) + g[..., h:].sum(-1)
         okf = ok.to(Y.dtype)
@@ -400,7 +364,7 @@ def _select_k_nearest(pos, active, cand_idx, cand_ok, radius, rest_filter):
     B, C, n = cand_idx.shape
     flat = cand_idx.reshape(B, -1)
     d = pos[..., None, :] - _take(pos, flat).view(B, 3, C, n)
-    dist2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    dist2 = dot3(d, d)
     me = torch.arange(n, device=pos.device).view(1, 1, n)
     ok = (cand_ok & _take(active, flat).view(B, C, n) & active[:, None]
           & (cand_idx != me) & (dist2 < radius * radius) & ~rest_filter)
@@ -428,8 +392,7 @@ def find_neighbors_hash(pos, active, radius, rest_positions):
     B, C, n = cand_idx.shape
     rd = rest_positions[..., None, :] - _take(
         rest_positions, cand_idx.reshape(B, -1)).view(B, 3, C, n)
-    rest_filter = (rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1]
-                   + rd[:, 2] * rd[:, 2]) < radius * radius
+    rest_filter = dot3(rd, rd) < radius * radius
     return _select_k_nearest(pos, active, cand_idx, cand_ok, radius,
                              rest_filter)
 
@@ -442,12 +405,11 @@ def solve_contacts(P, w, moving, nbr_idx, nbr_mask, *, rest_dist):
     B, K, n = nbr_idx.shape
     flat = nbr_idx.reshape(B, -1)
     d = P[..., None, :] - _take(P, flat).view(B, 3, K, n)
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                      + d[:, 2] * d[:, 2] + _EPS)
+    dist = torch.sqrt(dot3(d, d) + EPS)
     pen = rest_dist - dist
     wsum = w[:, None] + _take(w, flat).view(B, K, n)
     ok = nbr_mask & (pen > 0) & (wsum > 0)
-    s = torch.where(ok, pen / ((wsum + _EPS) * dist), 0.0)
+    s = torch.where(ok, pen / ((wsum + EPS) * dist), 0.0)
     delta = ((w[:, None] * s)[:, None] * d).sum(2)
     cnt = ok.sum(1)
     delta = delta / torch.clamp(cnt, min=1)[:, None]

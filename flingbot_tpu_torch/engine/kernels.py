@@ -22,7 +22,9 @@ adds one to LAUNCHES[name]; a mesh-mode launch of the contacts kernel also
 adds one to LAUNCHES["contacts_mesh"], and one of contact_gather to
 LAUNCHES["contact_gather_mesh"].  The launch geometry (the substeps
 kernel's row bands, the contacts kernel's tiles) is computed here, so the
-CPU tests reach it.
+CPU tests reach it.  So are the kernels' parameter blocks: pack_sub_params
+and contact_params build them, the SUB_* and CON_* constants name their
+columns, and no other module indexes them.
 """
 
 from __future__ import annotations
@@ -30,27 +32,38 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from flingbot_tpu_torch.engine import build as _build
+from flingbot_tpu_torch.engine.constraints import (
+    EPS, add_delta_clamped, clamp_finalize, grid_jacobi, integrate,
+    picker_push_sequential, solve_picker_spheres, solve_plane,
+    spring_coefficients, spring_loop)
+from flingbot_tpu_torch.engine.state import SolverParams
+from flingbot_tpu_torch.engine.topology import GridTopology, lattice_valid
 from flingbot_tpu_torch.utils import trace
 
 SOURCES = ("substeps", "contacts", "contact_apply", "contact_sort")
 KERNELS = ("substeps", "contacts", "contact_apply", "contact_keys",
            "contact_gather")
-LAUNCHES = {name: 0 for name in KERNELS + ("contacts_mesh",
-                                           "contact_gather_mesh")}
+LAUNCHES = trace.LAUNCHES  # the tracer's drain() reports them
+LAUNCHES.update(dict.fromkeys(KERNELS + ("contacts_mesh",
+                                         "contact_gather_mesh"), 0))
 
+# Columns of the substeps kernel's (B, SUB_PARAM_LEN) f32 block, as the C
+# sources read them: SUB_STIFFNESS starts 3 (stretch, bend, shear) and
+# SUB_PICKERS 6 (two xyz); SUB_PICKER_R = picker radius + collision distance
+SUB_DT, SUB_GRAVITY_Y, SUB_DAMPING, SUB_FRICTION, SUB_COLDIST = range(5)
+SUB_RELAX, SUB_SPACING, SUB_STIFFNESS, SUB_DIMX, SUB_DIMY = 5, 6, 7, 10, 11
+SUB_PICKER_R, SUB_CHEB_RHO2, SUB_PICKERS, SUB_MAX_ACCEL = 12, 13, 14, 20
 SUB_PARAM_LEN = 21
-# [0]=dt_sub [1]=gravity_y [2]=damping [3]=dynamic_friction
-# [4]=collision_distance [5]=relaxation [6]=spacing
-# [7..9]=stiffness(stretch,bend,shear) [10]=dimx [11]=dimy
-# [12]=picker_R (radius+coldist) [13]=cheb_rho2
-# [14..16]=picker0 xyz [17..19]=picker1 xyz [20]=max_acceleration
 
+# Columns of the contacts kernel's (B, CONTACT_PARAM_LEN) f32 block; the C
+# ABI reads all 8, the last 3 unused
+CON_REST_DIST, CON_W_UNIFORM, CON_MU_PAIR, CON_MU_PLANE, CON_COLDIST = \
+    range(5)
 CONTACT_PARAM_LEN = 8
-# [0]=rest_dist [1]=w_uniform [2]=mu_pair [3]=mu_plane
-# [4]=collision_distance [5..7]=unused
 # the mesh mode keeps its filter as one bit per window offset
 MAX_MESH_WINDOW = 32
 
@@ -59,7 +72,6 @@ PACK_INACTIVE_BIT = 21
 # the Morton key of an inactive slot: after every cloth slot in the sort
 INT32_BIG = 2 ** 30
 
-_EPS = 1e-9
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
 # substeps: one env across a cluster of SUBSTEPS_CLUSTER CTAs, each owning
@@ -246,34 +258,63 @@ def substeps(pvec, P, V, w, *, n_sub: int, iterations: int,
 
 def substeps_plain(pvec, P, V, w, *, n_sub: int, iterations: int,
                    cheb: bool = True, picker_last: bool = True):
-    """Plain PyTorch version of `substeps`, built from the solver
-    functions (the substep loop of solver._substep/_run_substeps in the
-    kernel's formulation)."""
-    from flingbot_tpu_torch.engine import solver as S
-    from flingbot_tpu_torch.engine.topology import lattice_valid
-
+    """Plain PyTorch version of `substeps`, built from the constraint
+    pieces (the substep loop of solver._run_substeps in the kernel's
+    formulation)."""
     B, _, H, W = P.shape
     col = lambda k: pvec[:, k].view(B, 1, 1)  # noqa: E731
-    dt, gravity_y, damping = col(0), col(1), col(2)
-    mu, coldist, a_max = col(3), col(4), col(20)
-    dimx = pvec[:, 10].to(torch.int64)
-    dimy = pvec[:, 11].to(torch.int64)
+    dt, gravity_y, damping = col(SUB_DT), col(SUB_GRAVITY_Y), col(SUB_DAMPING)
+    mu, coldist, a_max = col(SUB_FRICTION), col(SUB_COLDIST), \
+        col(SUB_MAX_ACCEL)
+    dimx = pvec[:, SUB_DIMX].to(torch.int64)
+    dimy = pvec[:, SUB_DIMY].to(torch.int64)
     valid = lattice_valid(dimx, dimy, H, W)
     w = torch.where(valid, w, 0.0)
     moving = valid & (w > 0)
-    classes, invc = S.spring_coefficients(
-        w, valid, dimx, dimy, pvec[:, 7:10], pvec[:, 6], pvec[:, 5])
-    rho2 = col(13)[:, None] if cheb else None
+    classes, invc = spring_coefficients(
+        w, valid, dimx, dimy, pvec[:, SUB_STIFFNESS:SUB_STIFFNESS + 3],
+        pvec[:, SUB_SPACING], pvec[:, SUB_RELAX])
+    rho2 = col(SUB_CHEB_RHO2)[:, None] if cheb else None
+    pickers = pvec[:, SUB_PICKERS:SUB_PICKERS + 6].reshape(B, 2, 3)
+    R = col(SUB_PICKER_R)
     prev = P
     for s in range(n_sub):
-        P, V, prev = S.integrate(P, V, dt, gravity_y, damping, moving)
-        P = S.spring_loop(
-            P, lambda Q: S.grid_jacobi(Q, classes, invc), iterations,
-            lambda Q: S.solve_plane(Q, prev, coldist, mu, moving), rho2)
-        V = S.clamp_finalize(P, V, prev, dt, a_max, moving)
+        P, V, prev = integrate(P, V, dt, gravity_y, damping, moving)
+        P = spring_loop(
+            P, lambda Q: grid_jacobi(Q, classes, invc), iterations,
+            lambda Q: solve_plane(Q, prev, coldist, mu, moving), rho2)
+        V = clamp_finalize(P, V, prev, dt, a_max, moving)
         if s < n_sub - 1 or picker_last:
-            P = S.picker_push_sequential(P, pvec, moving)
+            P = picker_push_sequential(P, pickers, R, moving)
     return P, V, prev
+
+
+def pack_sub_params(params: SolverParams, topo: GridTopology,
+                    picker_pos: torch.Tensor, picker_radius: float,
+                    dt_sub) -> torch.Tensor:
+    """SolverParams + topology + pickers -> the (B, SUB_PARAM_LEN) f32
+    block of `substeps` and `contact_apply`, columns in SUB_* order
+    (layout of pack_sub_params, pallas_kernels.py:70-75,332-353)."""
+    B = topo.batch
+    f = np.float32
+    rho = f(params.chebyshev_rho)
+    scal = [f(dt_sub), f(params.gravity[1]), f(params.damping),
+            f(params.dynamic_friction), f(params.collision_distance),
+            f(params.relaxation_factor), f(topo.spacing)]
+    head = trace.upload(scal, dtype=torch.float32, device=picker_pos.device)
+    tail = trace.upload(
+        [f(picker_radius) + f(params.collision_distance), rho * rho],
+        dtype=torch.float32, device=picker_pos.device)
+    return torch.cat([
+        head.expand(B, -1),
+        topo.stiffness.to(torch.float32),
+        topo.dimx.to(torch.float32)[:, None],
+        topo.dimy.to(torch.float32)[:, None],
+        tail.expand(B, -1),
+        picker_pos[:, :2].reshape(B, 6).to(torch.float32),
+        torch.full((B, 1), f(params.max_acceleration), dtype=torch.float32,
+                   device=picker_pos.device),
+    ], 1).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -294,6 +335,19 @@ def contact_smem(tile: int, halo: int) -> int:
     ping-pong position buffers holding the packed ids, and the previous
     positions with the mesh filter bits) over tile + 2 * halo slots."""
     return 3 * 16 * (tile + 2 * halo)
+
+
+def contact_params(params: SolverParams, rest_dist: float, batch: int,
+                   device) -> torch.Tensor:
+    """The (B, CONTACT_PARAM_LEN) f32 block of `contacts`, columns in CON_*
+    order (pallas_kernels.py:360-361)."""
+    f = np.float32
+    row = trace.upload(
+        [f(rest_dist), 1.0, f(params.particle_friction)
+         * f(params.dynamic_friction), f(params.dynamic_friction),
+         f(params.collision_distance), 0.0, 0.0, 0.0],
+        dtype=torch.float32, device=device)
+    return row.expand(batch, -1).contiguous()
 
 
 def contacts(cparams, xs, ys, zs, pxs, pys, pzs, packed, rests=None, *,
@@ -353,7 +407,9 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
     and `contacts` never takes this path for a CUDA tensor."""
     B, n = X.shape
     col = lambda k: cparams[:, k].view(B, 1)  # noqa: E731
-    rest_d, w_uni, mu_p, mu_plane, coldist = (col(k) for k in range(5))
+    rest_d, w_uni, mu_p, mu_plane, coldist = (
+        col(k) for k in (CON_REST_DIST, CON_W_UNIFORM, CON_MU_PAIR,
+                         CON_MU_PLANE, CON_COLDIST))
     lat_x = packed & 0xFF
     lat_y = (packed >> 8) & 0xFFF
     immobile = ((packed >> PACK_IMMOBILE_BIT) & 1) > 0
@@ -377,7 +433,7 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
         wn = fwd(w, k)
         wsum = w + wn
         ok = (i < n - k) & active & fwd(active, k) & ~nbr & (wsum > 0)
-        coef = torch.where(ok, 1.0 / (wsum + _EPS), 0.0)
+        coef = torch.where(ok, 1.0 / (wsum + EPS), 0.0)
         static_k.append((k, ok, coef, wn, PX - fwd(PX, k), PY - fwd(PY, k),
                          PZ - fwd(PZ, k)))
 
@@ -390,7 +446,7 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
             d0 = X - fwd(X, k)
             d1 = Y - fwd(Y, k)
             d2 = Z - fwd(Z, k)
-            sq = d0 * d0 + d1 * d1 + d2 * d2 + _EPS
+            sq = d0 * d0 + d1 * d1 + d2 * d2 + EPS
             r = torch.rsqrt(sq)
             pen = rest_d - sq * r
             live = pen > 0
@@ -403,7 +459,7 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
             t0 = r0 - rel_n * d0
             t1 = r1 - rel_n * d1
             t2 = r2 - rel_n * d2
-            tn_r = torch.rsqrt(t0 * t0 + t1 * t1 + t2 * t2 + _EPS)
+            tn_r = torch.rsqrt(t0 * t0 + t1 * t1 + t2 * t2 + EPS)
             fr = torch.clamp(mu_p * torch.clamp(pen, min=0.0) * tn_r,
                              max=1.0)
             fsc = torch.where(live, coef * fr, 0.0)
@@ -422,7 +478,7 @@ def contacts_plain(cparams, X, Y, Z, PX, PY, PZ, packed, rests=None, *,
         contact_f = torch.where(pen > 0, ms_f, 0.0)
         dx_ = X - PX
         dz_ = Z - PZ
-        t_norm = torch.sqrt(dx_ * dx_ + dz_ * dz_ + _EPS)
+        t_norm = torch.sqrt(dx_ * dx_ + dz_ * dz_ + EPS)
         f = contact_f * torch.clamp(
             mu_plane * torch.clamp(pen, min=0.0) / t_norm, max=1.0)
         X, Y, Z = X - dx_ * f, Y + contact_f * pen, Z - dz_ * f
@@ -473,15 +529,13 @@ def contact_apply(pvec, order, srt, out, V):
 
 def contact_apply_plain(pvec, order, srt, out, V):
     """Plain PyTorch version of `contact_apply`: the scatter back through
-    `order`, then solver.solve_plane, add_delta_clamped and
+    `order`, then solve_plane, add_delta_clamped and
     solve_picker_spheres.  Moving slots are those whose packed id has
     neither the immobile nor the inactive bit.  pvec's scalar columns are
     the same in every row (pack_sub_params); dv_max is taken from row 0 as
     a host float, as the grid step always passed it: PyTorch divides a
     host float by a tensor through the tensor's reciprocal
     (Tensor.__rdiv__), which rounds unlike a division by a tensor."""
-    from flingbot_tpu_torch.engine import solver as S
-
     B, N = order.shape
 
     def back(arrays):  # sorted order -> slot order, (B, len(arrays), N)
@@ -496,12 +550,12 @@ def contact_apply_plain(pvec, order, srt, out, V):
     moving = (((packed >> PACK_IMMOBILE_BIT) & 1) == 0) & (
         ((packed >> PACK_INACTIVE_BIT) & 1) == 0)
     col = lambda k: pvec[:, k].view(B, 1)  # noqa: E731
-    P2 = S.solve_plane(P2, prev, col(4), col(3), moving)
-    dv_max = float(pvec[0, 20] * pvec[0, 0])
-    P, V = S.add_delta_clamped(P, P2, V, col(0).view(B, 1, 1), dv_max,
-                               moving)
-    return S.solve_picker_spheres(P, pvec[:, 14:20].reshape(B, 2, 3),
-                                  col(12), moving), V
+    P2 = solve_plane(P2, prev, col(SUB_COLDIST), col(SUB_FRICTION), moving)
+    dv_max = float(pvec[0, SUB_MAX_ACCEL] * pvec[0, SUB_DT])
+    P, V = add_delta_clamped(P, P2, V, col(SUB_DT).view(B, 1, 1), dv_max,
+                             moving)
+    pickers = pvec[:, SUB_PICKERS:SUB_PICKERS + 6].reshape(B, 2, 3)
+    return solve_picker_spheres(P, pickers, col(SUB_PICKER_R), moving), V
 
 
 # --------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 cloths, layered-lattice shirts and generic meshes, on the pallas backend
 (the port's CUDA kernels) or the xla backend (plain PyTorch).
 
-Grid cloths, pallas backend: plain PyTorch functions on batched lattices,
-P (B, 3, H, W).  The hot loop runs in the CUDA kernels of
-engine/kernels.py; the functions here are the pieces of their plain
-versions and the glue between launches.  One frame = `substeps` substeps
+Grid cloths, pallas backend: batched lattices, P (B, 3, H, W).  The hot
+loop runs in the CUDA kernels of engine/kernels.py, which owns their
+parameter blocks; this module holds the glue between launches.  The plain
+pieces that both the kernels' plain versions and the substep loop below
+are built from are in engine/constraints.py.  One frame = `substeps` substeps
 in groups of `contact_every`.  A group is one `kernels.substeps` launch
 (integrate -> springs + plane iterations -> speed-up-only velocity clamp
 -> picker push, the last picker push deferred), then one contact group:
@@ -53,7 +54,9 @@ import numpy as np
 import torch
 
 from flingbot_tpu_torch.engine import aero, collisions, kernels
-from flingbot_tpu_torch.engine.collisions import solve_plane
+from flingbot_tpu_torch.engine.constraints import (
+    EPS, add_delta_clamped, dot3, finalize_velocity, solve_picker_spheres,
+    solve_plane, spring_loop)
 from flingbot_tpu_torch.engine.picker import (
     DEFAULT_PICKER_RADIUS as PICKER_RADIUS)
 from flingbot_tpu_torch.engine.state import ClothState, SolverParams, f32
@@ -62,231 +65,10 @@ from flingbot_tpu_torch.engine.topology import (
     lattice_valid, layered_neighbours, shift2d)
 from flingbot_tpu_torch.utils import trace
 
-_EPS = 1e-9
-CHEBYSHEV_DELAY = 2  # plain Jacobi warm-up iterations
-
-
-def _col(pvec: torch.Tensor, k: int) -> torch.Tensor:
-    return pvec[:, k].view(-1, 1, 1)
-
-
-# --------------------------------------------------------------------------
-# springs (kernel formulation of _grid_jacobi, solver.py:178-201)
-# --------------------------------------------------------------------------
-
-def spring_coefficients(w, valid, dimx, dimy, stiffness, spacing, relax):
-    """Per-class constant coefficient planes of the Jacobi spring solve.
-
-    w, valid (B, H, W); dimx, dimy (B,); stiffness (B, 3); spacing, relax
-    (B,) or scalars.  Returns ([(dy, dx, rest, gA, gB)], invc) with
-    gA = stiff*w/(w+wb), gB = stiff*wb/(w+wb) at the constraint's start
-    slot and invc = relax / constraint count (eNvFlexRelaxationLocal)."""
-    B, H, W = w.shape
-    dev = w.device
-    iy = torch.arange(H, device=dev).view(1, H, 1)
-    ix = torch.arange(W, device=dev).view(1, 1, W)
-    dimx = dimx.view(-1, 1, 1).to(torch.int64)
-    dimy = dimy.view(-1, 1, 1).to(torch.int64)
-    spacing = torch.as_tensor(spacing, dtype=torch.float32,
-                              device=dev).reshape(-1, 1, 1)
-    classes = []
-    count = torch.zeros_like(w)
-    for dy, dx, rest_k, cls in GRID_STENCIL_CLASSES:
-        rest = spacing * float(np.float32(rest_k))
-        stiff = stiffness[:, cls].view(-1, 1, 1)
-        wb = shift2d(w, dy, dx)
-        nbr_ok = ((iy + dy >= 0) & (iy + dy < dimy)
-                  & (ix + dx >= 0) & (ix + dx < dimx))
-        denom = w + wb
-        live = valid & nbr_ok & (denom > 0)
-        inv = stiff / (denom + _EPS)
-        gA = torch.where(live, w * inv, 0.0)
-        gB = torch.where(live, wb * inv, 0.0)
-        live_f = live.to(w.dtype)
-        count = count + live_f + shift2d(live_f, -dy, -dx)
-        classes.append((dy, dx, rest, gA, gB))
-    relax = torch.as_tensor(relax, dtype=torch.float32,
-                            device=dev).reshape(-1, 1, 1)
-    return classes, relax / torch.clamp(count, min=1.0)
-
-
-def grid_jacobi(P, classes, invc):
-    """One Jacobi pass over the six stencil classes from the same P,
-    accumulated and divided by the per-particle constraint count."""
-    acc = torch.zeros_like(P)
-    for dy, dx, rest, gA, gB in classes:
-        d = shift2d(P, dy, dx) - P
-        r = torch.rsqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                        + d[:, 2] * d[:, 2] + _EPS)
-        e = 1.0 - rest * r
-        a = (gA * e)[:, None]
-        b = (gB * e)[:, None]
-        acc = acc + a * d - shift2d(b * d, -dy, -dx)
-    return P + invc[:, None] * acc
-
-
-def chebyshev_loop(P, iterate_fn, iterations: int, plane_fn, rho2):
-    """Chebyshev semi-iterative acceleration (Wang 2015, gamma = 1) of a
-    Jacobi iteration, as _chebyshev_loop (solver.py:229-273):
-    P_{k+1} = plane(omega_k * (iterate(P_k) - P_{k-1}) + P_{k-1}),
-    after CHEBYSHEV_DELAY plain iterations."""
-    P_prev = P
-    for _ in range(min(CHEBYSHEV_DELAY, iterations)):
-        P_prev, P = P, plane_fn(iterate_fn(P))
-    if iterations <= CHEBYSHEV_DELAY:
-        return P
-    omega = 2.0 / (2.0 - rho2)
-    P_acc = omega * (iterate_fn(P) - P_prev) + P_prev
-    P_prev, P = P, plane_fn(P_acc)
-    for _ in range(CHEBYSHEV_DELAY + 1, iterations):
-        omega = 4.0 / (4.0 - rho2 * omega)
-        P_acc = omega * (iterate_fn(P) - P_prev) + P_prev
-        P_prev, P = P, plane_fn(P_acc)
-    return P
-
-
-def spring_loop(P, iterate_fn, iterations: int, plane_fn, rho2=None):
-    """`iterations` spring passes, each followed by the ground plane:
-    Chebyshev-accelerated (chebyshev_loop) with rho2 given, else plain
-    Jacobi, P_{k+1} = plane(iterate(P_k)) (spring_mode "jacobi": the
-    fori_loop of _substep, solver.py:418-424, and of the substeps kernel,
-    pallas_kernels.py:229-233)."""
-    if rho2 is not None:
-        return chebyshev_loop(P, iterate_fn, iterations, plane_fn, rho2)
-    for _ in range(iterations):
-        P = plane_fn(iterate_fn(P))
-    return P
-
-
-# --------------------------------------------------------------------------
-# ground plane, picker spheres, velocity finalize
-# --------------------------------------------------------------------------
-
-def solve_picker_spheres(P, picker_pos, R, moving, prev=None, mu=0.0):
-    """Push particles out of the gripper spheres (solve_picker_spheres,
-    solver.py:346-388).  P (B, 3, ...); picker_pos (B, K, 3); R = radius +
-    collision distance.  Every sphere pushes from the same P.  With `prev`
-    (the substep's entry positions) and picker friction mu > 0, each
-    contact also removes the tangential slip P - prev up to mu times its
-    penetration; mu = 0 is the position-only push."""
-    tail = (1,) * (P.dim() - 2)
-    delta = torch.zeros_like(P)
-    for k in range(picker_pos.shape[1]):
-        d = P - picker_pos[:, k].view((-1, 3) + tail)
-        dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                          + d[:, 2] * d[:, 2] + _EPS)
-        pen = R - dist
-        contact = (pen > 0) & moving
-        push = torch.where(contact, pen / dist, 0.0)
-        delta = delta + d * push[:, None]
-        if prev is not None and mu != 0.0:
-            slip = P - prev
-            n = d / dist[:, None]
-            sn = (slip[:, 0] * n[:, 0] + slip[:, 1] * n[:, 1]
-                  + slip[:, 2] * n[:, 2])
-            t = slip - sn[:, None] * n
-            t_norm = torch.sqrt(t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1]
-                                + t[:, 2] * t[:, 2] + _EPS)
-            scale = torch.clamp(mu * torch.clamp(pen, min=0.0) / t_norm,
-                                max=1.0)
-            delta = delta - t * torch.where(contact, scale, 0.0)[:, None]
-    return P + delta
-
-
-def picker_push_sequential(P, pvec, moving):
-    """The substeps kernel's picker push: spheres applied one after the
-    other, rsqrt form (picker_push, pallas_kernels.py:240-256)."""
-    R = _col(pvec, 12)
-    for k in range(2):
-        c = pvec[:, 14 + 3 * k:17 + 3 * k].reshape(-1, 3, 1, 1)
-        d = P - c
-        sq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] + _EPS
-        r = torch.rsqrt(sq)
-        pen = R - sq * r
-        push = torch.where((pen > 0) & moving, pen * r, 0.0)
-        P = P + d * push[:, None]
-    return P
-
-
-def integrate(P, V, dt, gravity_y, damping, moving):
-    """Gravity + damping on moving particles, then predict positions.
-    P, V (B, 3, H, W); dt, gravity_y, damping (B, 1, 1).  Returns
-    (P, V, prev)."""
-    mm = moving[:, None]
-    V = torch.stack([V[:, 0], V[:, 1] + dt * gravity_y, V[:, 2]], 1)
-    V = V * torch.clamp(1.0 - damping * dt, min=0.0)[:, None]
-    V = torch.where(mm, V, 0.0)
-    return torch.where(mm, P + dt[:, None] * V, P), V, P
-
-
-def clamp_finalize(P, V, prev, dt, a_max, moving):
-    """Velocity finalize with the speed-up-only maxAcceleration clamp
-    (solver.py:409-437, rsqrt form of the substeps kernel): only
-    speed-increasing changes are capped.  dt, a_max (B, 1, 1)."""
-    V_new = (P - prev) / dt[:, None]
-    dv = V_new - V
-    r = torch.rsqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
-                    + dv[:, 2] * dv[:, 2] + _EPS)
-    speeding = (V_new[:, 0] * V_new[:, 0] + V_new[:, 1] * V_new[:, 1]
-                + V_new[:, 2] * V_new[:, 2]
-                > V[:, 0] * V[:, 0] + V[:, 1] * V[:, 1] + V[:, 2] * V[:, 2])
-    sc = torch.where(speeding, torch.clamp(a_max * dt * r, max=1.0), 1.0)
-    return torch.where(moving[:, None], V + dv * sc[:, None], V)
-
-
-def _per_dt(dt, like: torch.Tensor):
-    """dt as a 0-dim tensor on `like`'s device: a CUDA division by a host
-    scalar multiplies by its reciprocal, which rounds unlike the CPU's (and
-    the JAX package's) true division."""
-    return trace.upload(dt, dtype=torch.float32, device=like.device)
-
-
-def add_delta_clamped(P, P2, V, dt, dv_max, moving):
-    """Apply a projection P -> P2 with its velocity contribution under the
-    speed-up-only clamp (_add_delta_clamped, solver.py:454).  dt: a float
-    or a tensor that broadcasts against P (see _per_dt)."""
-    dv = (P2 - P) / dt
-    V_new = V + dv
-    dv_norm = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
-                         + dv[:, 2] * dv[:, 2] + _EPS)
-    speeding = (V_new[:, 0] * V_new[:, 0] + V_new[:, 1] * V_new[:, 1]
-                + V_new[:, 2] * V_new[:, 2]
-                > V[:, 0] * V[:, 0] + V[:, 1] * V[:, 1] + V[:, 2] * V[:, 2])
-    scale = torch.where(speeding, torch.clamp(dv_max / dv_norm, max=1.0),
-                        1.0)
-    return P2, torch.where(moving[:, None], V + dv * scale[:, None], V)
-
 
 # --------------------------------------------------------------------------
 # the step
 # --------------------------------------------------------------------------
-
-def pack_sub_params(params: SolverParams, topo: GridTopology,
-                    picker_pos: torch.Tensor, picker_radius: float,
-                    dt_sub) -> torch.Tensor:
-    """SolverParams + topology + pickers -> (B, 21) f32 kernel parameters
-    (layout of pack_sub_params, pallas_kernels.py:70-75,332-353)."""
-    B = topo.batch
-    f = np.float32
-    rho = f(params.chebyshev_rho)
-    scal = [f(dt_sub), f(params.gravity[1]), f(params.damping),
-            f(params.dynamic_friction), f(params.collision_distance),
-            f(params.relaxation_factor), f(topo.spacing)]
-    head = trace.upload(scal, dtype=torch.float32, device=picker_pos.device)
-    tail = trace.upload(
-        [f(picker_radius) + f(params.collision_distance), rho * rho],
-        dtype=torch.float32, device=picker_pos.device)
-    return torch.cat([
-        head.expand(B, -1),
-        topo.stiffness.to(torch.float32),
-        topo.dimx.to(torch.float32)[:, None],
-        topo.dimy.to(torch.float32)[:, None],
-        tail.expand(B, -1),
-        picker_pos[:, :2].reshape(B, 6).to(torch.float32),
-        torch.full((B, 1), f(params.max_acceleration), dtype=torch.float32,
-                   device=picker_pos.device),
-    ], 1).contiguous()
-
 
 def _aero_on(params: SolverParams) -> bool:
     """Drag / lift set: the aero pass runs (wind acts only through them)."""
@@ -376,8 +158,8 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
                         0.0).contiguous()
         moving = valid & (w > 0)
         dt_sub = np.float32(params.dt) / np.float32(substeps)
-        pvec = pack_sub_params(params, topo, state.picker_pos,
-                               PICKER_RADIUS, dt_sub)
+        pvec = kernels.pack_sub_params(params, topo, state.picker_pos,
+                                       PICKER_RADIUS, dt_sub)
         flat_valid = valid.reshape(B, -1)
 
     def contacts(P, V, prevL):
@@ -445,7 +227,7 @@ def layered_spring_planes(w, topo: LayeredGridTopology):
     inv_flat = torch.where(inv_ok, inv + k_base, K * N).reshape(-1)
     return dict(nbr=nbr.reshape(-1), inv=inv_flat, stiff=stiff,
                 rest=topo.rest.reshape(B, K, N), wb=wb,
-                live=(stiff > 0) & (wsum > 0), den=wsum + _EPS,
+                live=(stiff > 0) & (wsum > 0), den=wsum + EPS,
                 count=torch.clamp(topo.count.reshape(B, N), min=1.0))
 
 
@@ -459,8 +241,7 @@ def solve_springs_layered(P, w, planes, relax):
     B, _, N = P.shape
     K = planes["stiff"].shape[1]
     d = P[:, :, planes["nbr"]].view(B, 3, K, N) - P[:, :, None]
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                      + d[:, 2] * d[:, 2] + _EPS)
+    dist = torch.sqrt(dot3(d, d) + EPS)
     C = dist - planes["rest"]
     s = torch.where(planes["live"],
                     planes["stiff"] * C / (planes["den"] * dist), 0.0)
@@ -471,21 +252,11 @@ def solve_springs_layered(P, w, planes, relax):
     return P + relax * acc / planes["count"][:, None]
 
 
-def finalize_velocity(P, V, prev, dt, dv_max, moving):
-    """Velocity finalize with the speed-up-only maxAcceleration clamp in the
-    sqrt / divide form of _substep (solver.py:437-444); the substeps
-    kernel's rsqrt form (clamp_finalize) rounds differently, and the clamp
-    is discontinuous.  dt: a float or a 0-dim tensor (see _per_dt)."""
-    V_new = (P - prev) / dt
-    dv = V_new - V
-    dv_norm = torch.sqrt(dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
-                         + dv[:, 2] * dv[:, 2] + _EPS)
-    speeding = (V_new[:, 0] * V_new[:, 0] + V_new[:, 1] * V_new[:, 1]
-                + V_new[:, 2] * V_new[:, 2]
-                > V[:, 0] * V[:, 0] + V[:, 1] * V[:, 1] + V[:, 2] * V[:, 2])
-    scale = torch.where(speeding, torch.clamp(dv_max / dv_norm, max=1.0),
-                        1.0)
-    return torch.where(moving[:, None], V + dv * scale[:, None], V)
+def _per_dt(dt, like: torch.Tensor):
+    """dt as a 0-dim tensor on `like`'s device: a CUDA division by a host
+    scalar multiplies by its reciprocal, which rounds unlike the CPU's (and
+    the JAX package's) true division."""
+    return trace.upload(dt, dtype=torch.float32, device=like.device)
 
 
 def _run_substeps(P, V, w, moving, params: SolverParams, picker_pos, *,
@@ -640,12 +411,11 @@ def solve_springs_mesh(P, w, topo: MeshTopology, relax):
     pn = torch.gather(P, 2, flat.expand(B, 3, D * N)).view(B, 3, D, N)
     wn = torch.gather(w, 1, flat[:, 0]).view(B, D, N)
     d = pn - P[:, :, None]
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                      + d[:, 2] * d[:, 2] + _EPS)
+    dist = torch.sqrt(dot3(d, d) + EPS)
     C = dist - topo.nbr_rest
     wsum = w[:, None] + wn
     s = torch.where(topo.nbr_mask & (wsum > 0),
-                    topo.nbr_stiff * C / ((wsum + _EPS) * dist), 0.0)
+                    topo.nbr_stiff * C / ((wsum + EPS) * dist), 0.0)
     acc = ((w[:, None] * s)[:, None] * d).sum(2)
     return P + relax * acc / torch.clamp(topo.degree, min=1.0)[:, None]
 
@@ -703,8 +473,7 @@ def _grid_class_terms(P, w, valid, dy, dx, rest, stiff):
     wb = shift2d(w, dy, dx)
     pair_ok = valid & shift2d(valid, dy, dx, fill=False)
     d = Pb - P
-    dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                      + d[:, 2] * d[:, 2] + _EPS)
+    dist = torch.sqrt(dot3(d, d) + EPS)
     return d, dist, dist - rest, w + wb, wb, pair_ok
 
 
@@ -736,7 +505,7 @@ def grid_phase(P, w, valid, dy, dx, color, rest, stiff, relax):
     d, dist, C, wsum, wb, pair_ok = _grid_class_terms(P, w, valid, dy, dx,
                                                       rest, stiff)
     s = torch.where(sel & pair_ok & (wsum > 0),
-                    relax * stiff * C / ((wsum + _EPS) * dist), 0.0)
+                    relax * stiff * C / ((wsum + EPS) * dist), 0.0)
     dA = (w * s)[:, None] * d
     dB = (-(wb * s))[:, None] * d
     return P + dA + shift2d(dB, -dy, -dx)
@@ -752,7 +521,7 @@ def grid_jacobi_xla(P, w, valid, topo: GridTopology, relax):
         d, dist, C, wsum, wb, pair_ok = _grid_class_terms(
             P, w, valid, dy, dx, rest, stiff)
         s = torch.where(pair_ok & (wsum > 0),
-                        stiff * C / ((wsum + _EPS) * dist), 0.0)
+                        stiff * C / ((wsum + EPS) * dist), 0.0)
         dA = (w * s)[:, None] * d
         dB = (-(wb * s))[:, None] * d
         acc = acc + dA + shift2d(dB, -dy, -dx)

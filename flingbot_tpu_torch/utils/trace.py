@@ -15,10 +15,12 @@ id is the id of the root span that holds it (a root's own id).  Spans are
 recorded only while tracing is on, which is not the default: off, `span`
 returns one shared object that reads no clock and records nothing.
 
-Counters are always on, as `engine.kernels.LAUNCHES` is: `count(name)`
-adds to COUNTS.  `host_syncs` counts the uploads of `upload`, each a copy
-from host memory that on a card waits until the device has run every
-operation queued before it.
+Counters are always on: `count(name)` adds to COUNTS, and the kernel
+wrappers of `engine.kernels` add their launches to LAUNCHES (which is
+`kernels.LAUNCHES`: this module imports nothing of the engine).
+`host_syncs` counts the uploads of `upload`, each a copy from host memory
+that on a card waits until the device has run every operation queued
+before it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import time
 import torch
 
 COUNTS: dict = {}
+LAUNCHES: dict = {}  # kernel launches by kernel name, kept by engine.kernels
 
 _on = False
 _spans: list = []
@@ -95,10 +98,9 @@ def drain():
     """(spans, counts): the spans ended since the last drain, in the order
     they ended, and the counters since then (COUNTS, and a copy of the
     kernel launch counters under "launches"); empties both records."""
-    from flingbot_tpu_torch.engine import kernels
     spans = list(_spans)
     _spans.clear()
-    counts = dict(COUNTS, launches=dict(kernels.LAUNCHES))
+    counts = dict(COUNTS, launches=dict(LAUNCHES))
     COUNTS.clear()
     return spans, counts
 

@@ -1,8 +1,11 @@
 """Package rules of flingbot_tpu_torch: it never imports JAX or the JAX
 package, its entry points refuse to run without CUDA unless asked for the
-CPU, and its kernel wrappers take the plain version only for CPU
-tensors."""
+CPU, its kernel wrappers take the plain version only for CPU tensors, and
+the engine's imports point down its layers (state, topology <-
+constraints <- kernels <- collisions <- solver, the tracer below them
+all)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -115,9 +118,9 @@ def test_wrappers_use_plain_versions_only_on_cpu():
     before = dict(kernels.LAUNCHES)
     B, H, W = 1, 4, 4
     pvec = torch.zeros(B, kernels.SUB_PARAM_LEN)
-    pvec[:, 0] = 0.0025
-    pvec[:, 10] = W
-    pvec[:, 11] = H
+    pvec[:, kernels.SUB_DT] = 0.0025
+    pvec[:, kernels.SUB_DIMX] = W
+    pvec[:, kernels.SUB_DIMY] = H
     P = torch.zeros(B, 3, H, W)
     out = kernels.substeps(pvec, P, P, torch.ones(B, H, W), n_sub=1,
                            iterations=2)
@@ -125,3 +128,41 @@ def test_wrappers_use_plain_versions_only_on_cpu():
     assert kernels.LAUNCHES == before  # plain versions do not count
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels._check(P.to("meta"), "P", P.shape)
+
+
+ENGINE = "flingbot_tpu_torch.engine"
+
+
+def imported_modules(path):
+    """Every module an import statement of the file at `path` names, at
+    the top or inside a function: `import a.b` names a.b, and `from a
+    import b` both a and a.b (b may be a module); relative imports are
+    resolved against the file's package."""
+    package = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] \
+                if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            names += [module] + [f"{module}.{a.name}" for a in node.names]
+    return names
+
+
+@pytest.mark.parametrize("path,banned", [
+    ("flingbot_tpu_torch/engine/constraints.py",
+     ("kernels", "collisions", "solver")),
+    ("flingbot_tpu_torch/engine/kernels.py", ("collisions", "solver")),
+    ("flingbot_tpu_torch/utils/trace.py", ("",)),
+])
+def test_engine_imports_point_down(path, banned):
+    """A lower layer imports no module of the engine above it; the tracer
+    imports none of the engine."""
+    names = imported_modules(os.path.join(ROOT, path))
+    assert "torch" in names  # the walk reached the file's imports
+    above = [f"{ENGINE}.{b}".rstrip(".") for b in banned]
+    bad = [n for n in names
+           if any(n == a or n.startswith(a + ".") for a in above)]
+    assert not bad, f"{path} imports {bad}"

@@ -18,7 +18,8 @@ from flingbot_tpu.engine.solver import step as jax_step
 from flingbot_tpu.engine.state import SolverParams as JParams
 from flingbot_tpu.engine.topology import build_grid_topology as jax_topology
 from flingbot_tpu_torch.engine import kernels
-from flingbot_tpu_torch.engine.solver import pack_sub_params, step
+from flingbot_tpu_torch.engine.kernels import pack_sub_params
+from flingbot_tpu_torch.engine.solver import step
 from flingbot_tpu_torch.engine.state import SolverParams
 from flingbot_tpu_torch.engine.topology import (
     build_grid_topology, compute_layered_spec)

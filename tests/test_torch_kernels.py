@@ -17,10 +17,11 @@ import pytest
 import torch
 
 from flingbot_tpu_torch.engine import collisions, kernels
+from flingbot_tpu_torch.engine.constraints import (
+    add_delta_clamped, solve_picker_spheres, solve_plane)
+from flingbot_tpu_torch.engine.kernels import pack_sub_params
 from flingbot_tpu_torch.engine.picker import DEFAULT_PICKER_RADIUS
-from flingbot_tpu_torch.engine.solver import (
-    add_delta_clamped, pack_sub_params, solve_picker_spheres, solve_plane,
-    step)
+from flingbot_tpu_torch.engine.solver import step
 from flingbot_tpu_torch.engine.state import ClothState, SolverParams
 from flingbot_tpu_torch.engine.topology import (
     build_grid_topology, grid_positions, lattice_valid)
@@ -120,7 +121,7 @@ def test_contacts_match_pallas_on_sorted_arrays():
         torch.tensor(P)[None], torch.tensor(prev)[None],
         torch.tensor(w)[None], torch.tensor(active)[None],
         rest_dist=params.radius, lattice_w=16)
-    cp = collisions.contact_params(params, params.radius, 1, "cpu")
+    cp = kernels.contact_params(params, params.radius, 1, "cpu")
     out = kernels.contacts(cp, *srt, window=8, iterations=4)
     jp = JParams()
     arrs = [jnp.asarray(a[0].numpy()) for a in srt]
@@ -195,7 +196,7 @@ def test_mesh_contacts_match_pallas_and_xla_on_a_shirt(iterations, tol):
     moves them by 1.3e-4 to 7.3e-4 after four iterations."""
     _, _, srt = _shirt_contact_inputs()
     params = SolverParams()
-    cp = collisions.contact_params(params, params.radius, 1, "cpu")
+    cp = kernels.contact_params(params, params.radius, 1, "cpu")
     kw = dict(window=12, iterations=iterations)
     out = kernels.contacts(cp, *srt[:7], rests=srt[7:], **kw)
     jp = JParams()
@@ -263,7 +264,7 @@ def _tail_inputs(n=1500, inactive=600, seed=2):
     _, srt = collisions.sort_particles(
         *(torch.tensor(a) for a in (P, prev, w, active)),
         rest_dist=params.radius, lattice_w=64)
-    return collisions.contact_params(params, params.radius, 1, "cpu"), srt
+    return kernels.contact_params(params, params.radius, 1, "cpu"), srt
 
 
 def _tiled_plain(cp, srt, rests, window, iterations):
@@ -305,8 +306,8 @@ def test_contact_tiles_stitch_to_the_whole(mode, window, iterations):
         rests = None
     else:
         _, _, arrs = _shirt_contact_inputs()
-        cp = collisions.contact_params(SolverParams(), SolverParams().radius,
-                                       1, "cpu")
+        cp = kernels.contact_params(SolverParams(), SolverParams().radius,
+                                    1, "cpu")
         srt, rests = arrs[:7], arrs[7:]
     kw = dict(window=window, iterations=iterations)
     whole = kernels.contacts_plain(cp, *srt, rests, **kw)
@@ -340,7 +341,7 @@ def _obj_shirt_contact_inputs():
     _, srt = collisions.sort_particles(
         moved.positions, state.positions, w, state.active,
         rest_dist=params.radius, rest_positions=topo.rest_positions)
-    cp = collisions.contact_params(params, params.radius, 2, "cpu")
+    cp = kernels.contact_params(params, params.radius, 2, "cpu")
     return cp, srt[:7], srt[7:]
 
 
@@ -594,8 +595,8 @@ def test_cuda_kernels_match_plain(cuda_device):
         *(torch.tensor(a, device=cuda_device)[None]
           for a in (Pc, prevc, wc, activec)),
         rest_dist=SolverParams().radius, lattice_w=16)
-    cp = collisions.contact_params(SolverParams(), SolverParams().radius, 1,
-                                   cuda_device)
+    cp = kernels.contact_params(SolverParams(), SolverParams().radius, 1,
+                                cuda_device)
     ok = kernels.contacts(cp, *srt, window=8, iterations=4)
     op = kernels.contacts_plain(cp, *srt, window=8, iterations=4)
     for a, b in zip(ok, op):

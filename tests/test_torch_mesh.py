@@ -412,7 +412,7 @@ def test_contacts_mesh_generic_kernel_matches_plain(cuda_device, sheet):
     _, srt = collisions.sort_particles(
         moved.positions, ts.positions, w, ts.active,
         rest_dist=params.radius, rest_positions=tt.rest_positions)
-    cp = collisions.contact_params(params, params.radius, 1, cuda_device)
+    cp = kernels.contact_params(params, params.radius, 1, cuda_device)
     kw = dict(rests=srt[7:], window=12, iterations=4)
     before = kernels.LAUNCHES["contacts_mesh"]
     out_k = kernels.contacts(cp, *srt[:7], **kw)

@@ -101,12 +101,12 @@ def one_pass(st, tp, params, card, rest):
     if rest is not None:
         kw["rests"] = srt[7:]
     out_c = kernels.contacts_plain(
-        collisions.contact_params(params, params.radius, B, "cpu"),
+        kernels.contact_params(params, params.radius, B, "cpu"),
         *srt[:7], **kw)
     on_card = [a.to(card) for a in srt]
     if rest is not None:
         kw["rests"] = on_card[7:]
-    cp = collisions.contact_params(params, params.radius, B, card)
+    cp = kernels.contact_params(params, params.radius, B, card)
     out_k = kernels.contacts(cp, *on_card[:7], **kw) if rest is not None \
         else None
     out_p = kernels.contacts_plain(cp, *on_card[:7], **kw)
