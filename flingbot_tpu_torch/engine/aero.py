@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from flingbot_tpu_torch.engine.state import device_constant
 from flingbot_tpu_torch.engine.topology import shift2d
-from flingbot_tpu_torch.utils import trace
 
 _EPS = 1e-9
 
@@ -75,8 +75,8 @@ def aero_accel(V: torch.Tensor, normals: torch.Tensor, params,
                moving: torch.Tensor) -> torch.Tensor:
     """Acceleration from drag / lift / wind.  V, normals (B, 3, ...);
     moving (B, ...)."""
-    wind = trace.upload(params.wind, dtype=V.dtype, device=V.device).view(
-        (1, 3) + (1,) * (V.dim() - 2))
+    wind = device_constant(params.wind, dtype=V.dtype, device=V.device)
+    wind = wind.view((1, 3) + (1,) * (V.dim() - 2))
     vr = V - wind
     speed = torch.sqrt(vr[:, 0] * vr[:, 0] + vr[:, 1] * vr[:, 1]
                        + vr[:, 2] * vr[:, 2] + _EPS)

@@ -40,7 +40,7 @@ from flingbot_tpu_torch.engine.constraints import (
     EPS, add_delta_clamped, clamp_finalize, grid_jacobi, integrate,
     picker_push_sequential, solve_picker_spheres, solve_plane,
     spring_coefficients, spring_loop)
-from flingbot_tpu_torch.engine.state import SolverParams
+from flingbot_tpu_torch.engine.state import SolverParams, device_constant
 from flingbot_tpu_torch.engine.topology import GridTopology, lattice_valid
 from flingbot_tpu_torch.utils import trace
 
@@ -301,8 +301,9 @@ def pack_sub_params(params: SolverParams, topo: GridTopology,
     scal = [f(dt_sub), f(params.gravity[1]), f(params.damping),
             f(params.dynamic_friction), f(params.collision_distance),
             f(params.relaxation_factor), f(topo.spacing)]
-    head = trace.upload(scal, dtype=torch.float32, device=picker_pos.device)
-    tail = trace.upload(
+    head = device_constant(scal, dtype=torch.float32,
+                           device=picker_pos.device)
+    tail = device_constant(
         [f(picker_radius) + f(params.collision_distance), rho * rho],
         dtype=torch.float32, device=picker_pos.device)
     return torch.cat([
@@ -342,7 +343,7 @@ def contact_params(params: SolverParams, rest_dist: float, batch: int,
     """The (B, CONTACT_PARAM_LEN) f32 block of `contacts`, columns in CON_*
     order (pallas_kernels.py:360-361)."""
     f = np.float32
-    row = trace.upload(
+    row = device_constant(
         [f(rest_dist), 1.0, f(params.particle_friction)
          * f(params.dynamic_friction), f(params.dynamic_friction),
          f(params.collision_distance), 0.0, 0.0, 0.0],
@@ -604,11 +605,11 @@ def contact_keys_plain(P, active, rest_dist):
     on every device."""
     # divide by a device tensor: a CUDA division by a host scalar
     # multiplies by its reciprocal and can move a particle across a cell
-    rd = trace.upload(rest_dist, dtype=torch.float32, device=P.device)
+    rd = device_constant(rest_dist, dtype=torch.float32, device=P.device)
     cell = torch.clamp(torch.floor(P / rd).to(torch.int32) + 512, 0, 1023)
     return torch.where(active, morton_code(cell),
-                       trace.upload(INT32_BIG, dtype=torch.int32,
-                                    device=P.device))
+                       device_constant(INT32_BIG, dtype=torch.int32,
+                                       device=P.device))
 
 
 def contact_gather(order, P, prev, w, active, *, lattice_w=None,

@@ -44,8 +44,9 @@ solver.step; inside it the grid step on the pallas backend records
 solver.prep, solver.substeps (each launch), and per contact group
 solver.contacts.sort, .project and .apply (the contact_apply launch);
 the other paths' contact groups record the same three, .apply around
-the scatter back.  Each per-frame upload of a constant is a counted
-solver.sync (trace.upload).
+the scatter back.  The per-frame constants come from
+state.device_constant: a frame records a counted solver.sync
+(trace.upload) only for a value this process has not uploaded before.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ from flingbot_tpu_torch.engine.constraints import (
     solve_plane, spring_loop)
 from flingbot_tpu_torch.engine.picker import (
     DEFAULT_PICKER_RADIUS as PICKER_RADIUS)
-from flingbot_tpu_torch.engine.state import ClothState, SolverParams, f32
+from flingbot_tpu_torch.engine.state import (
+    ClothState, SolverParams, device_constant, f32)
 from flingbot_tpu_torch.engine.topology import (
     GRID_STENCIL_CLASSES, GridTopology, LayeredGridTopology, MeshTopology,
     lattice_valid, layered_neighbours, shift2d)
@@ -176,8 +178,8 @@ def _step_grid(state, topo, params, *, substeps, iterations, contact_every,
             return P.view(B, 3, H, W), V.view(B, 3, H, W)
 
     if _aero_on(params):
-        g_dt = dt_sub * trace.upload(params.gravity, dtype=torch.float32,
-                                     device=P.device).view(1, 3, 1, 1)
+        g_dt = dt_sub * device_constant(params.gravity, dtype=torch.float32,
+                                        device=P.device).view(1, 3, 1, 1)
         for s in range(substeps):
             kick = aero.aero_accel(V + g_dt, aero.grid_normals(P, valid),
                                    params, moving)
@@ -256,7 +258,7 @@ def _per_dt(dt, like: torch.Tensor):
     """dt as a 0-dim tensor on `like`'s device: a CUDA division by a host
     scalar multiplies by its reciprocal, which rounds unlike the CPU's (and
     the JAX package's) true division."""
-    return trace.upload(dt, dtype=torch.float32, device=like.device)
+    return device_constant(dt, dtype=torch.float32, device=like.device)
 
 
 def _run_substeps(P, V, w, moving, params: SolverParams, picker_pos, *,
@@ -275,9 +277,9 @@ def _run_substeps(P, V, w, moving, params: SolverParams, picker_pos, *,
     dv_max = float(np.float32(params.max_acceleration) * dt)
     damp = float(max(np.float32(0.0), np.float32(1.0)
                      - np.float32(params.damping) * dt))
-    g_dt = dt * trace.upload(params.gravity, dtype=torch.float32,
-                             device=P.device).view(
-                                 (1, 3) + (1,) * (P.dim() - 2))
+    g_dt = dt * device_constant(params.gravity, dtype=torch.float32,
+                                device=P.device).view(
+                                    (1, 3) + (1,) * (P.dim() - 2))
     rho2 = np.float32(params.chebyshev_rho) * np.float32(
         params.chebyshev_rho) if chebyshev else None
     R = float(np.float32(PICKER_RADIUS) + np.float32(

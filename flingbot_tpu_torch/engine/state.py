@@ -6,6 +6,10 @@ y * W + x of an (H, W) lattice, positions (B, 3, H*W); slots outside an
 env's (dimy, dimx) cloth are inactive and never move.  Layered shirts keep
 their lattice's slots, generic meshes the mesh's vertex order padded to a
 capacity.
+
+The solver's per-frame constants (kernel parameters, substep length,
+gravity, wind, the plain sort's scalars) come from `device_constant`,
+which uploads each value once a process.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from flingbot_tpu_torch.device import resolve_device
+from flingbot_tpu_torch.utils import trace
 
 PARTICLE_RADIUS = 0.00625
 DEFAULT_DT = 1.0 / 100.0
@@ -30,6 +35,39 @@ def f32(x) -> float:
     """Round a Python number to float32 (the JAX package keeps every
     solver scalar as a float32 array)."""
     return float(np.float32(x))
+
+
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+                 torch.int32: np.int32}
+_CONSTANTS: dict = {}  # (device, dtype, shape, bytes) -> device tensor
+
+
+def device_constant(data, *, dtype, device) -> torch.Tensor:
+    """`data` as a tensor of `dtype` on `device`, uploaded once a process
+    for each value.  The solver uploads the same few constants on every
+    frame, and on a card each upload from pageable host memory waits
+    until the stream has drained; so the tensor made at the first call is
+    kept and handed to every later call with the same value.  The key is
+    the value's bytes in `dtype` (so -0.0, NaN and float32 rounding key
+    exactly), its shape, dtype and device.  A miss uploads through
+    trace.upload (counted under host_syncs, a solver.sync span); a hit
+    counts const_hits.  The tensor is shared: callers view, expand or
+    compute from it and never write into it."""
+    array = np.asarray(data, dtype=_NUMPY_DTYPES[dtype])
+    key = (torch.device(device), dtype, array.shape, array.tobytes())
+    tensor = _CONSTANTS.get(key)
+    if tensor is None:
+        tensor = _CONSTANTS[key] = trace.upload(array, dtype=dtype,
+                                                device=device)
+    else:
+        trace.count("const_hits")
+    return tensor
+
+
+def clear_device_constants():
+    """Forget every kept constant, so that the next call of each value
+    uploads again (tests start from a known count)."""
+    _CONSTANTS.clear()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,9 @@ wrappers of `engine.kernels` add their launches to LAUNCHES (which is
 `kernels.LAUNCHES`: this module imports nothing of the engine).
 `host_syncs` counts the uploads of `upload`, each a copy from host memory
 that on a card waits until the device has run every operation queued
-before it.
+before it; `const_hits` counts the solver's constants that
+`engine.state.device_constant` found already on the device, with no
+upload.
 """
 
 from __future__ import annotations
@@ -96,11 +98,13 @@ def count(name: str, n: int = 1):
 
 def drain():
     """(spans, counts): the spans ended since the last drain, in the order
-    they ended, and the counters since then (COUNTS, and a copy of the
+    they ended, and the counters since then (COUNTS, host_syncs and
+    const_hits among them even where they stayed 0, and a copy of the
     kernel launch counters under "launches"); empties both records."""
     spans = list(_spans)
     _spans.clear()
-    counts = dict(COUNTS, launches=dict(LAUNCHES))
+    counts = dict({"host_syncs": 0, "const_hits": 0}, **COUNTS,
+                  launches=dict(LAUNCHES))
     COUNTS.clear()
     return spans, counts
 
@@ -109,10 +113,8 @@ def upload(data, *, dtype, device) -> torch.Tensor:
     """torch.tensor(data, dtype=dtype, device=device), counted under
     host_syncs and recorded as a solver.sync span: on a card the copy from
     pageable host memory returns only after the device has drained its
-    stream.  The solver's per-frame constants go through it: the grid
-    step's kernel parameters and substep length, the substep loop's
-    gravity, the aero pass's wind, the contact group's parameters and
-    the scalars of its plain sort (the xla backend, and the CPU)."""
+    stream.  engine.state.device_constant calls it for each constant of
+    the solver the first time the process meets its value."""
     count("host_syncs")
     with span("solver.sync"):
         return torch.tensor(data, dtype=dtype, device=device)

@@ -3,7 +3,8 @@ package, its entry points refuse to run without CUDA unless asked for the
 CPU, its kernel wrappers take the plain version only for CPU tensors, and
 the engine's imports point down its layers (state, topology <-
 constraints <- kernels <- collisions <- solver, the tracer below them
-all)."""
+all; state, which keeps the solver's device constants, imports no other
+module of the engine)."""
 
 import ast
 import os
@@ -152,6 +153,9 @@ def imported_modules(path):
 
 
 @pytest.mark.parametrize("path,banned", [
+    ("flingbot_tpu_torch/engine/state.py",
+     ("aero", "build", "collisions", "constraints", "kernels", "picker",
+      "solver", "topology")),
     ("flingbot_tpu_torch/engine/constraints.py",
      ("kernels", "collisions", "solver")),
     ("flingbot_tpu_torch/engine/kernels.py", ("collisions", "solver")),
